@@ -3,7 +3,7 @@
 
 PY ?= python
 
-.PHONY: all setup native run bench bench-suite tpu-check tpu-check-quick \
+.PHONY: all setup native run bench bench-suite chip-smoke chip-smoke-multi \
         test lab fmt lint info clean
 
 all: native test
@@ -28,29 +28,29 @@ native:
 run: native
 	$(PY) -m bhr_tpu.app --frames 120 --perf-log dev
 
-# headline benchmark -> one JSON line
+# headline benchmark -> one JSON line (needs a GPU)
 bench:
 	$(PY) bench.py
 
-# full BENCHMARKS.md table, one session -> measurements/bench_suite_*.json
+# the config suite, one run -> measurements/bench_suite_*.json
 # (compare two runs with scripts/bench_compare.py)
 bench-suite:
 	$(PY) scripts/bench_suite.py
 
-# on-device regression gate: smoke + bit-parity + golden --check + bench
-# asserts + profiler guard -> one verdict JSON line. MANDATORY before
-# committing kernel changes (CPU tests run Pallas in interpret mode and
-# cannot catch Mosaic compile bugs or numerics/perf regressions).
-# `make tpu-check-quick` skips the 4K golden config + exact-tier bench.
-tpu-check:
-	$(PY) scripts/tpu_check.py
+# on-card smoke test: every kernel compiled for the GPU and checked against
+# the XLA oracle at full width; last line is one JSON object. The CPU tests
+# run the Pallas kernel in interpret mode and cannot see what the GPU's
+# compiler refuses, so run this on the card after any kernel change.
+chip-smoke:
+	$(PY) chip_smoke.py
 
-tpu-check-quick:
-	$(PY) scripts/tpu_check.py --quick
+# the four-GPU sharded path only
+chip-smoke-multi:
+	$(PY) chip_smoke.py --multi
 
-# CPU test suite with 8 virtual devices
+# CPU test suite with 8 virtual devices (the `gpu`-marked tests skip)
 test:
-	$(PY) -m pytest tests/ -q
+	$(PY) -m pytest tests/ -q -m 'not slow' -n 6 --dist loadfile
 
 # JupyterLab with the rendering notebook (the reference's `just lab`)
 lab:

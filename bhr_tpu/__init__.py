@@ -1,4 +1,4 @@
-"""bhr_tpu: TPU-native general-relativistic black-hole raytracer.
+"""bhr_tpu: general-relativistic black-hole raytracer in JAX (GPU).
 
 A ground-up JAX/XLA/Pallas framework with the capabilities of the reference
 Rust+wgpu/WGSL implementation (etoal83/black-hole-raytracer): Schwarzschild

@@ -35,18 +35,13 @@ APP_MAX_STEPS = 200
     static_argnames=(
         "config",
         "use_pallas",
-        "tile",
-        "fast_math",
         "tonemap",
-        "interpret",
         "seed",
         "packed",
         "camera_fn",
         "texture_filter",
         "texture_subsample",
-        "kernel_knobs",
         "multires",
-        "neural_dtype",
         "neural_precision",
     ),
 )
@@ -60,20 +55,15 @@ def render_frames_scan(
     *,
     config,
     use_pallas,
-    tile,
-    fast_math,
-    tonemap,
-    interpret,
+    tonemap="passthrough",
     seed=2020,
     packed=False,
     camera_fn=None,
     texture_filter="bilinear",
     texture_subsample=1,
-    kernel_knobs=None,
     multires=0,
     neural_params=None,
-    neural_dtype="float32",
-    neural_precision="default",
+    neural_precision="bf16",
 ):
     """Render frames at `times` (fp32[F]) in one fused lax.scan.
 
@@ -111,8 +101,6 @@ def render_frames_scan(
                 texture_filter=texture_filter,
                 texture_subsample=texture_subsample,
                 seed=seed,
-                interpret=interpret,
-                fast_math=fast_math,
                 packed=True,
             )
         else:
@@ -124,17 +112,12 @@ def render_frames_scan(
                 lut,
                 config=config,
                 use_pallas=use_pallas,
-                tile=tile,
-                fast_math=fast_math,
                 tonemap=tonemap,
-                interpret=interpret,
                 seed=seed,
                 packed=True,
                 texture_filter=texture_filter,
                 texture_subsample=texture_subsample,
-                kernel_knobs=kernel_knobs,
                 neural_params=neural_params,
-                neural_dtype=neural_dtype,
                 neural_precision=neural_precision,
             )
         return carry, frame
@@ -185,19 +168,14 @@ class PathAnimator:
             r._lut,
             config=r.config,
             use_pallas=r.use_pallas,
-            tile=r.tile,
-            fast_math=r.fast_math,
             tonemap=r.tonemap,
-            interpret=r.interpret,
             seed=r.skybox_seed,
             packed=packed,
-            texture_filter=getattr(r, "_sample_filter", "bilinear"),
-            texture_subsample=getattr(r, "texture_subsample", 1),
-            kernel_knobs=r.kernel_knobs,
-            multires=getattr(r, "multires", 0),
-            neural_params=getattr(r, "neural_params", None),
-            neural_dtype=getattr(r, "neural_dtype", "float32"),
-            neural_precision=getattr(r, "neural_precision", "default"),
+            texture_filter=r._sample_filter,
+            texture_subsample=r.texture_subsample,
+            multires=r.multires,
+            neural_params=r.neural_params,
+            neural_precision=r.neural_precision,
             **self._scan_kwargs(),
         )
 
@@ -220,7 +198,6 @@ class PathAnimator:
             "model": r.config.model,
             "adaptive": r.config.adaptive,
             "disk": r.config.disk,
-            "fast_math": r.fast_math,
             "tonemap": r.tonemap,
             "texture_filter": r._sample_filter,
             "texture_subsample": str(r.texture_subsample),
@@ -298,8 +275,7 @@ class PathAnimator:
         while done < n_frames:
             n = min(chunk_size, n_frames - done)
             frames = self.render_frames(n, fps, start_frame + done, scene, packed=True)
-            # ascontiguousarray: padded-layout TPU outputs device_get as
-            # strided views, which .view(uint8) rejects
+            # ascontiguousarray: .view(uint8) needs a contiguous buffer
             host = np.ascontiguousarray(jax.device_get(frames)).view(np.uint8)
             host = host.reshape(host.shape[0], host.shape[1], -1, 4)
             for k in range(n):

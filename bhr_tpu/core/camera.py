@@ -1,6 +1,6 @@
 """Camera data model and ray generation.
 
-TPU-native analog of the reference's `Camera` struct + look-at constructor
+JAX analog of the reference's `Camera` struct + look-at constructor
 (reference: src/lib.rs:15-59) and the per-pixel ray-generation block of the
 compute shader (reference: src/ray_tracer_euler.wgsl:183-198).
 

@@ -1,6 +1,6 @@
 """Vector math primitives shared by host- and device-side code.
 
-TPU-native re-implementation of the reference's vector utilities
+JAX re-implementation of the reference's vector utilities
 (reference: src/lib.rs:119-135) and the shader-side direction->UV mapping
 (reference: src/ray_tracer_euler.wgsl:93-98).
 
@@ -31,7 +31,7 @@ def normalize_unguarded(v: jnp.ndarray, axis: int = -1) -> jnp.ndarray:
     """Shader-style normalize: v / |v| with no zero guard.
 
     Used inside the geodesic hot loop (reference: wgsl:140, 166) where the
-    vector is never zero. Uses an IEEE sqrt + divide so CPU-jax, TPU XLA and
+    vector is never zero. Uses an IEEE sqrt + divide so CPU-jax, GPU XLA and
     the Pallas kernel agree bit-for-bit on the same inputs.
     """
     length = jnp.sqrt(jnp.sum(v * v, axis=axis, keepdims=True))

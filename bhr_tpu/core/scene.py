@@ -1,6 +1,6 @@
 """Scene parameter data model.
 
-TPU-native analog of the reference's `SceneParams` uniform struct
+JAX analog of the reference's `SceneParams` uniform struct
 (reference: src/lib.rs:63-75, src/ray_tracer_euler.wgsl:15-25). The wgpu
 16-byte-alignment padding fields are ABI artifacts and are not replicated.
 

@@ -2,7 +2,7 @@
 
 The analog of the reference's readback + save path (reference:
 src/lib.rs:613-702): device texture -> host RGBA8 bytes -> PNG/JPEG by file
-extension. On TPU "readback" is a single jax.device_get at the save
+extension. "Readback" is a single jax.device_get at the save
 boundary — the only host<->device transfer in the pipeline (SURVEY.md
 section 2.2, communication backend).
 

@@ -1,6 +1,6 @@
 """Video export: Motion-JPEG in an AVI container, dependency-free.
 
-The reference presents frames to a winit window in real time; headless TPU
+The reference presents frames to a winit window in real time; headless GPU
 rendering needs a portable animation artifact instead. ffmpeg is not
 assumed — MJPEG/AVI is the one mainstream video format writable from
 scratch: a RIFF container where every frame is an independent JPEG (encoded

@@ -1,7 +1,7 @@
 """Live MJPEG frame streamer — the windowed-display analog.
 
 The reference presents frames in a winit window with a fullscreen-quad
-display pass (src/main.rs:264-1147, src/display.wgsl). A TPU host is
+display pass (src/main.rs:264-1147, src/display.wgsl). A GPU server is
 headless, so the real-time surface here is an HTTP stream any browser can
 show: `python -m bhr_tpu.app --serve 8000` renders the orbit animation
 and streams it as multipart/x-mixed-replace JPEG (MJPEG — the standard
@@ -10,8 +10,7 @@ http://localhost:8000/.
 
 Design: one daemon-thread `http.server.ThreadingHTTPServer`; the render
 loop pushes frames with `submit(rgba_u8)` (encoded to JPEG on the host,
-~1-2 ms at 800x600 — off the device hot path, exactly like the PNG
-writeback), and each connected client's handler thread wakes on a
+off the device hot path, exactly like the PNG writeback), and each connected client's handler thread wakes on a
 Condition and writes the newest frame. Slow clients skip frames rather
 than applying backpressure to the render loop (always-latest semantics,
 like a swapchain with Mailbox present mode).

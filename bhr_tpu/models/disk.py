@@ -202,16 +202,15 @@ def temperature_to_color_select(t, t_min=LUT_T_MIN, t_max=LUT_T_MAX,
                                 coarse=64):
     """Gather-free blackbody color: piecewise-linear clamp-sum evaluation.
 
-    XLA gathers cost ~7.4 ns per index on v5e regardless of table size
-    (scripts/gather_bench.py), so temperature_to_color's two row-gathers
-    cost ~30 ms at 1080p / ~123 ms at 4K — dwarfing the multires geodesic
-    savings for disk configs. This variant evaluates the SAME piecewise-
-    linear curve as a clamp-sum over compile-time segment constants:
+    temperature_to_color reads the LUT with two row-gathers per pixel;
+    this variant evaluates the SAME piecewise-linear curve as a clamp-sum
+    over compile-time segment constants, so the multires epilogue stays
+    gather-free:
 
         c(x) = lut[0] + sum_i (lut[i+1] - lut[i]) * clamp(x - i, 0, 1)
 
-    over a `coarse`-entry subsample of the host LUT — ~5 VPU ops per
-    segment per pixel (~0.3 ms at 1080p), zero gathers. With
+    over a `coarse`-entry subsample of the host LUT — ~5 elementwise ops
+    per segment per pixel, zero gathers. With
     coarse=LUT_STEPS it reproduces temperature_to_color's curve exactly;
     the default 64-segment subsample differs by < 1.5 u8 levels anywhere
     on the curve (tests/test_models_disk.py) — used by the multires

@@ -3,7 +3,7 @@ geodesics via Hamiltonian integration.
 
 The reference's roadmap specifies Boyer-Lindquist/Kerr-Schild Kerr geodesics
 (reference: docs/ROADMAP.md:514-826); this module implements the Kerr-Schild
-form, which is the TPU-friendly one: Cartesian (no coordinate singularity at
+form, which is the accelerator-friendly one: Cartesian (no coordinate singularity at
 the poles), horizon-penetrating (no 1/(1-rs/r) blowup at the horizon — no
 clamps needed in the hot loop), and branch-free.
 

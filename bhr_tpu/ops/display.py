@@ -8,7 +8,7 @@ XLA fuses it into the render epilogue, the idiomatic replacement for a
 second GPU pass.
 
 `Vertex`/`QUAD_VERTICES` are provided for API parity with the reference
-library exports (reference: src/lib.rs:79-112); TPU rendering has no vertex
+library exports (reference: src/lib.rs:79-112); headless rendering has no vertex
 stage, so they are plain data.
 """
 

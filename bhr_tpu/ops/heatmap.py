@@ -3,7 +3,7 @@
 Reproduces `steps_to_color` (reference: src/ray_tracer_euler.wgsl:114-135):
 blue -> cyan -> green -> yellow -> red over t = steps / max_steps, in four
 linear segments. Written branch-free (nested selects become vectorized
-wheres) — the TPU-friendly form of the shader's if/else chain.
+wheres) — the vectorized form of the shader's if/else chain.
 """
 
 from __future__ import annotations

@@ -9,19 +9,18 @@ runs on divisor^2 x fewer rays. Shadow-edge pixels, where interpolating
 the deflection field is invalid (it blends captured and escaped rays),
 are detected and re-integrated at full resolution.
 
-TPU-first design choices (vs the reference's fragment-shader warp):
+Design choices (vs the reference's fragment-shader warp):
 
   * The deflection upsample is GATHER-FREE: for an integer divisor the
     bilinear sample positions fall on `divisor` static phases per axis
     (x_low = (j + 0.5)/d - 0.5), so upsampling is shift-and-blend on
-    whole planes — pure VPU, no per-pixel indexing (ops/resample.py).
+    whole planes — elementwise work XLA fuses, no per-pixel indexing
+    (ops/resample.py).
   * Edge re-integration is a MASKED full-resolution kernel pass
-    (pallas_trace_image(mask=...)): masked-off rays start outside the
-    escape sphere and self-freeze at step 0, and a tile whose rays are
-    all masked fails the early-exit condition before its first loop trip
-    — tiles, not pixels, are the skip granularity, so the pass costs
-    roughly (edge tile fraction) x (full render). A narrow tile
-    (default (8, 256)) keeps that fraction close to the true edge area.
+    (pallas_trace_image(mask=...)): masked-off rays start finished, and a
+    block whose rays are all masked never enters its integration loop —
+    blocks of rays, not pixels, are the skip granularity, so the pass
+    costs roughly (edge block fraction) x (full render).
   * Everything is static-shaped and jit-compatible: one compiled program
     per (scene shape, divisor), usable inside the fused lax.scan
     animation path.
@@ -40,7 +39,7 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from .pallas_trace import pallas_trace_image, pick_tile
+from .pallas_trace import pallas_trace_image
 from .resample import neighbor_max as _neighbor_max
 from .resample import shift as _shift
 from .resample import upsample_bilinear
@@ -70,24 +69,6 @@ def deflection_edges(vel_planes, status, threshold: float):
             diff = jnp.maximum(diff, d)
     edge = (diff > threshold).astype(jnp.float32)
     return _neighbor_max(edge)  # dilate 1
-
-
-def _compatible_spc(want: int, max_steps: int) -> int:
-    """Largest turbo sub-step cadence <= `want` that divides max_steps
-    (build_kernel silently falls back to spc=1 otherwise)."""
-    for c in (want, 25, 20, 10, 5, 4, 2, 1):
-        if c <= want and max_steps % c == 0:
-            return c
-    return 1
-
-
-def _fix_cadence(fix_knobs, max_steps: int) -> tuple[int, int]:
-    """(early_exit_every, steps_per_check) for the edge fix-up pass."""
-    fix_spc = _compatible_spc(fix_knobs[2], max_steps)
-    fix_eee = max(fix_knobs[0], fix_spc)
-    if fix_eee % fix_spc or max_steps % fix_eee:
-        fix_eee = fix_spc  # always a valid cadence (divides max_steps)
-    return fix_eee, fix_spc
 
 
 def _shade_multires(
@@ -144,10 +125,8 @@ def _shade_multires(
         background = functools.partial(
             sample_equirect_packed, skybox, filter=texture_filter
         )
-    # the multires epilogue must stay gather-free: the blackbody LUT
-    # evaluates as a clamp-sum select chain instead (~0.3 ms at 1080p vs
-    # ~30 ms for the two-gather lerp; models/disk.py
-    # temperature_to_color_select)
+    # the multires epilogue stays gather-free: the blackbody LUT evaluates
+    # as a clamp-sum select chain (models/disk.py temperature_to_color_select)
     frame = shade_planes_packed(
         result,
         background,
@@ -165,8 +144,7 @@ def _shade_multires(
     jax.jit,
     static_argnames=(
         "config", "divisor", "texture_filter", "texture_subsample", "seed",
-        "edge_fix", "edge_threshold", "fix_tile", "interpret", "fast_math",
-        "tile", "packed", "low_knobs", "fix_knobs",
+        "edge_fix", "edge_threshold", "packed",
     ),
 )
 def render_multires(
@@ -183,13 +161,7 @@ def render_multires(
     seed: int = 2020,
     edge_fix: bool = True,
     edge_threshold: float = 0.05,
-    fix_tile=(8, 256),
-    interpret: bool | None = None,
-    fast_math: bool = True,
-    tile=None,
     packed: bool = False,
-    low_knobs=(0, 1, 50),
-    fix_knobs=(50, 1, 50),
 ):
     """Render one frame with 1/divisor-resolution geodesics (+ edge fix-up).
 
@@ -209,24 +181,15 @@ def render_multires(
         raise ValueError("config.disk needs disk_params + blackbody_lut")
     if scene.debug_mode != 0:
         raise ValueError("multires does not support debug modes")
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     height, width = scene.screen_height, scene.screen_width
     lh = -(-height // divisor)
     lw = -(-width // divisor)
-    low_spc = _compatible_spc(low_knobs[2], scene.max_steps)
-    fix_eee, fix_spc = _fix_cadence(fix_knobs, scene.max_steps)
     # the STRIDED low pass traces every divisor-th pixel of the FULL image
     # (same scene dims in ray-gen), so low pixel (i, j) is exactly full
     # pixel (i*divisor, j*divisor) for any width/height — no resampling
     # convention mismatch and no aspect drift for non-dividing sizes
     low = pallas_trace_image(
-        camera, scene, config,
-        tile=tile or pick_tile(lw),
-        fast_math=fast_math, interpret=interpret, track_steps=False,
-        early_exit_every=low_knobs[0], unroll=low_knobs[1],
-        steps_per_check=low_spc,
-        local_shape=(lh, lw), stride=divisor,
+        camera, scene, config, local_shape=(lh, lw), stride=divisor
     )
     lvx = low.final_vel[..., 0]
     lvy = low.final_vel[..., 1]
@@ -251,13 +214,7 @@ def render_multires(
         edge = jnp.repeat(
             jnp.repeat(edge_low, divisor, axis=0), divisor, axis=1
         )[: height, : width]
-        fix = pallas_trace_image(
-            camera, scene, config,
-            tile=fix_tile, fast_math=fast_math, interpret=interpret,
-            track_steps=False, early_exit_every=fix_eee,
-            unroll=fix_knobs[1], steps_per_check=fix_spc,
-            mask=edge,
-        )
+        fix = pallas_trace_image(camera, scene, config, mask=edge)
         em = edge > 0.0
         vx = jnp.where(em, fix.final_vel[..., 0], vx)
         vy = jnp.where(em, fix.final_vel[..., 1], vy)
@@ -304,12 +261,6 @@ def render_multires_band(
     seed: int = 2020,
     edge_fix: bool = True,
     edge_threshold: float = 0.05,
-    fix_tile=(8, 256),
-    interpret: bool | None = None,
-    fast_math: bool = True,
-    tile=None,
-    low_knobs=(0, 1, 50),
-    fix_knobs=(50, 1, 50),
 ):
     """Rows [row0, row0+band_h) of a multires frame -> packed u32 (band_h, W).
 
@@ -337,8 +288,6 @@ def render_multires_band(
         raise ValueError("config.disk needs disk_params")
     if scene.debug_mode != 0:
         raise ValueError("multires does not support debug modes")
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     height, width = scene.screen_height, scene.screen_width
     d = int(divisor)
     lh_full = -(-height // d)
@@ -350,15 +299,9 @@ def render_multires_band(
     row0 = jnp.asarray(row0, jnp.int32)
     q0 = row0 // d  # first low row whose full row intersects the band
     low0 = q0 - halo
-    low_spc = _compatible_spc(low_knobs[2], scene.max_steps)
-    fix_eee, fix_spc = _fix_cadence(fix_knobs, scene.max_steps)
     low = pallas_trace_image(
-        camera, scene, config,
-        tile=tile or pick_tile(lw),
-        fast_math=fast_math, interpret=interpret, track_steps=False,
-        early_exit_every=low_knobs[0], unroll=low_knobs[1],
-        steps_per_check=low_spc,
-        local_shape=(n_low, lw), stride=d, row0=low0 * d,
+        camera, scene, config, local_shape=(n_low, lw), stride=d,
+        row0=low0 * d,
     )
     # clamp out-of-image low rows to the image's border rows (see docstring)
     src = jnp.clip(low0 + jnp.arange(n_low, dtype=jnp.int32), 0, lh_full - 1) - low0
@@ -394,11 +337,8 @@ def render_multires_band(
             jnp.repeat(jnp.repeat(edge_low, d, axis=0), d, axis=1)[:, :width]
         )
         fix = pallas_trace_image(
-            camera, scene, config,
-            tile=fix_tile, fast_math=fast_math, interpret=interpret,
-            track_steps=False, early_exit_every=fix_eee,
-            unroll=fix_knobs[1], steps_per_check=fix_spc,
-            mask=edge, row0=row0, local_shape=(band_h, width),
+            camera, scene, config, mask=edge, row0=row0,
+            local_shape=(band_h, width),
         )
         em = edge > 0.0
         vx = jnp.where(em, fix.final_vel[..., 0], vx)

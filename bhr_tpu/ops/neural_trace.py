@@ -1,6 +1,6 @@
 """Frame-level neural-surrogate tracing (reference roadmap Phase 5).
 
-Renders the deflection field of a whole frame as batched MXU matmuls
+Renders the deflection field of a whole frame as batched matmuls
 instead of geodesic integration: per-pixel ray-gen (identical to the
 integrator paths), reduced-coordinate features, one MLP forward pass over
 the (H*W, F) pixel batch, and reconstruction into the standard
@@ -41,10 +41,9 @@ def neural_trace_image(
     `params`: MLP weights (models/neural.py), or the Kerr surrogate's
     (models/neural_kerr.py) — dispatched on the static input-feature
     width (16 Schwarzschild / 22 Kerr; spin then comes from the scene).
-    `dtype` selects the matmul element type (fp32 default; bf16 for
-    maximum MXU rate); `precision` the MXU pass count — it must match
-    the weights' training precision (models/neural.mlp_apply note;
-    "high"/"highest"/lax.Precision or None for single-pass bf16). `row0` / `local_shape` render a row band of the
+    `dtype` selects the matmul operand type and `precision` the product
+    precision — together the inference tier, which must match the
+    weights' training precision (models/neural.tier_matmul_args). `row0` / `local_shape` render a row band of the
     full image (mesh-sharded rendering, parallel/mesh.py) — UVs always
     reference the full frame.
     """
@@ -53,7 +52,7 @@ def neural_trace_image(
         camera, scene.screen_width, scene.screen_height, scene.fov,
         row_offset=row0, local_shape=(h, w),
     )
-    # flatten to a (N, 3) batch: one big MXU-friendly matmul per layer
+    # flatten to a (N, 3) batch: one big matmul per layer
     flat_o = origins.reshape(-1, 3)
     flat_d = dirs.reshape(-1, 3)
     if params[0][0].shape[0] == N_FEATURES_KERR:

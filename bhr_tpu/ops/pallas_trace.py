@@ -1,52 +1,36 @@
-"""Pallas TPU kernel for the geodesic ray-trace.
+"""Pallas-Triton kernel for the geodesic ray-trace (NVIDIA GPU).
 
-The performance path of the renderer: the TPU-native replacement for the
-reference's WGSL compute shader (reference: src/ray_tracer_euler.wgsl:173-215
-dispatched in 8x8 workgroups, src/lib.rs:584-586). Design (SURVEY.md §7.4):
+The fused per-ray loop of the renderer: the GPU counterpart of the
+reference's WGSL compute shader (reference: src/ray_tracer_euler.wgsl:
+173-215). One program owns a 1-D block of `block` rays (a power of two):
 
-  * grid over pixel tiles sized for the VPU (default (8, 256) fp32 vregs),
-    the analog of the shader's 8x8 workgroups;
-  * ray state held as separate (TH, TW) component planes ("struct of
-    arrays") so every op is a full-width VPU instruction;
-  * the per-ray `for { break }` loop becomes one masked `lax.while_loop`
-    per tile with an all-done early exit — tiles fully inside the shadow
-    or fully escaped stop integrating immediately;
-  * no HBM traffic in the hot loop: ray-gen happens in-kernel from
-    program_id, and the skybox gather runs as fused XLA *after* the kernel
-    on the escape directions (wgsl samples mid-kernel; on TPU that would
-    serialize a gather against the VPU loop).
+  * rays are generated in-kernel from the flat local pixel id
+    (y = id // W_local, x = id % W_local), so only the 32-float params
+    vector and, for the multires fix-up, a mask plane are read;
+  * ray state (position, velocity or Kerr momentum, status, step count)
+    lives in registers for the whole integration — no device-memory
+    traffic inside the loop;
+  * the block runs one `lax.while_loop` whose condition is "some ray of
+    this block is still running", so a block inside the shadow or fully
+    escaped stops early instead of waiting for the slowest ray of the
+    image (the XLA oracle loops until the last ray of the frame is done);
+  * finished rays freeze by select, exactly like the oracle
+    (ops/trace.py), so status and per-ray step counts follow the oracle's
+    semantics step for step.
 
-Numerics: fp32 throughout, same operation order as ops/trace.py (the XLA
-oracle), which itself mirrors the WGSL. `fast_math=True` swaps IEEE
-sqrt/divide for rsqrt/reciprocal approximations in the hot loop.
+The arithmetic mirrors the oracle's operation order (ops/trace.py,
+ops/geodesic.py, models/*). `TraceConfig.fast_math` selects the math tier
+of the per-step velocity renormalization: sqrt and three divides (exact,
+the library default) or v * rsqrt(v.v) (approximate, the app default,
+faster on the H100: PERF.md). The exact Kerr-Schild flavor renormalizes
+nothing, so the tier does not change it. Shading stays in the XLA epilogue
+(renderer.shade_image), which XLA fuses on the GPU.
 
-build_kernel emits one of five kernel flavors, picked by static config:
-
-  1. exact-scratch — bit-parity with the oracle; ray status in a VMEM
-               scratch ref (a status loop-carry trips a Mosaic relayout
-               bug). Selected when per-ray step counts are tracked (the
-               debug heatmap) or for kerr_lt exact.
-  2. fused   — fast-math with folded coefficients, status-ful (used when
-               the debug heatmap needs per-ray step counts).
-  3. stateless — terminated rays freeze via dt_eff = 0, so termination
-               (capture/escape/disk-sentinel) is re-derived from geometry
-               each step: no state, no scratch, no selects. Two math
-               tiers: fast (rsqrt/approx-reciprocal, folded coefficients)
-               and exact (IEEE ops in oracle order with freeze guards that
-               are bit-exact no-ops for live rays — 2x faster than the
-               scratch kernel at the same numerics).
-  4. monolithic — stateless-fast + in-kernel analytic shading; one
-               packed-u32 RGBA output plane (the benchmark path).
-
-Spacetime models: schwarzschild and flat step (pos, vel) with an
-acceleration; "kerr" integrates (q, p) in Hamiltonian form on the exact
-Kerr-Schild metric (models/kerr_schild.py — horizon-penetrating, so the
-hot loop needs no singularity clamps); "kerr_lt" is the legacy cheap
-Lense-Thirring approximation.
-
-Outputs per pixel (flavors 1-3): final position (3 planes), final unit
-velocity (3 planes), status code, steps taken — shading happens downstream
-(ops/shading.py).
+`kernel_mode()` is the single platform decision of the package: compiled
+Pallas-Triton on a GPU, the Pallas interpreter on the CPU (tests), and an
+error anywhere else. The kernel applies it to the platform it is lowered
+for (`lax.platform_dependent`), so the device a call runs on decides,
+never the process's default backend.
 """
 
 from __future__ import annotations
@@ -55,9 +39,11 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
+from ..core.scene import CAPTURE_FACTOR
 from .trace import (
     STATUS_CAPTURED,
     STATUS_DISK,
@@ -67,117 +53,38 @@ from .trace import (
     TraceResult,
 )
 
-DEFAULT_EARLY_EXIT_EVERY = 64
+# Rays per program and warps per program: the fastest shape of the
+# scripts/kernel_ab.py --sweep grid at 1080p x 500 on the H100 (PERF.md).
+DEFAULT_BLOCK = 128
+DEFAULT_NUM_WARPS = 2
+assert DEFAULT_BLOCK >= 32 and DEFAULT_BLOCK & (DEFAULT_BLOCK - 1) == 0
 
-# Disk-shading constants mirrored from models/disk.py (static in-kernel).
-from ..models.disk import LUT_T_MAX as _DISK_T_MAX  # noqa: E402
-from ..models.disk import LUT_T_MIN as _DISK_T_MIN  # noqa: E402
-from ..models.disk import LUT_STEPS as _DISK_LUT_STEPS  # noqa: E402
-from ..models.disk import T_ISCO as _DISK_T_ISCO  # noqa: E402
-
-
-def monolithic_eligible(config, scene, *, use_pallas, fast_math, skybox,
-                        disk_params, tonemap) -> bool:
-    """True when the fused trace+shade (monolithic) kernel can produce this
-    frame. The single source of truth for the eligibility predicate —
-    renderer.render_image and parallel.mesh both consult it.
-
-    Disk frames (round 3): the FAST tier shades the accretion disk
-    in-kernel — Doppler/redshift/beaming plane math plus a lane-butterfly
-    blackbody-LUT gather (see _lut_gather in build_kernel) — assuming
-    for_scene-derived DiskParams (r_isco/r_outer from the TraceConfig
-    factors, t_isco = models.disk.T_ISCO), which is what the renderer
-    always constructs. The exact tier keeps the staged LUT epilogue
-    (bit-parity contract)."""
-    disk_ok = (
-        (not config.disk and disk_params is None)
-        # fused disk: fast tier only, and the LUT butterfly needs the
-        # stateless kernel flavors
-        or (config.disk and fast_math)
-    )
-    return (
-        use_pallas
-        and skybox is None
-        and disk_ok
-        and config.integrator in ("euler", "rk4", "leapfrog")
-        # exact tier fuses too (round 2): in-kernel shading reuses the
-        # identical starfield ops and a true round-half-even quantizer, so
-        # frames bit-match the staged epilogue. kerr_lt exact has no
-        # stateless kernel (scratch only) and stays staged; plugin physics
-        # (model="custom") always runs the scratch kernel (no verified
-        # freeze-guard algebra for arbitrary user accelerations).
-        and (fast_math or config.model != "kerr_lt")
-        and config.model != "custom"
-        and scene.debug_mode == 0
-        and tonemap == "passthrough"
-    )
+KERNEL_COMPILED = "compiled"
+KERNEL_INTERPRET = "interpret"
 
 
-@functools.lru_cache(maxsize=1)
-def _autotune_cache_entries():
-    """Parsed .bhr_autotune.json entries: (device, w, h, fast, extra, tile)."""
-    import json
+def kernel_mode(platform: str | None = None) -> str:
+    """How Pallas kernels run on `platform` (default: JAX's backend).
 
-    try:
-        cache = json.load(open(".bhr_autotune.json"))
-    except Exception:
-        return ()
-    out = []
-    for k, v in cache.items():
-        try:
-            dev, shape, _steps, fast, *cfg = k.split("|")
-            w, h = shape.split("x")
-            out.append(
-                (dev, int(w), int(h), fast == "fast=True", bool(cfg),
-                 tuple(v["tile"]))
-            )
-        except Exception:
-            continue
-    return tuple(out)
-
-
-def pick_tile(width: int, height: int = 0, fast_math=None) -> tuple[int, int]:
-    """Pick a (8, W) kernel tile for an image shape.
-
-    Consults the on-device autotune cache first (utils/autotune.py sidecar;
-    nearest measured shape for this device — real measurements beat any
-    static model), falling back to the v5e-measured cost table: per-pixel
-    throughput rises with tile width up to (8, 640) and falls beyond, and
-    padding the image to a tile multiple costs proportionally (every
-    candidate has sublane height 8, so `height` only matters through the
-    cache lookup). Minimize padded_width * cost(tile).
+    "compiled" on a GPU (Pallas through Triton; "cuda" is the GPU's
+    lowering-platform name), "interpret" on the CPU (the Pallas
+    interpreter, for tests; the renderer's CPU default is the XLA oracle).
+    Any other platform is an error: there is no kernel for it and no silent
+    fallback.
     """
-    import math
+    platform = jax.default_backend() if platform is None else platform
+    if platform in ("gpu", "cuda"):
+        return KERNEL_COMPILED
+    if platform == "cpu":
+        return KERNEL_INTERPRET
+    raise RuntimeError(
+        f"bhr_tpu has no kernel route for platform {platform!r}: it runs "
+        "compiled on an NVIDIA GPU, or on the CPU through the XLA oracle "
+        "and the Pallas interpreter"
+    )
 
-    try:
-        dev = jax.devices()[0].device_kind
-    except Exception:
-        dev = None
-    best = None
-    for d, w, h, fast, has_cfg, tile in _autotune_cache_entries():
-        if d != dev:
-            continue
-        if fast_math is not None and fast != bool(fast_math):
-            continue
-        dist = (
-            abs(math.log(max(w, 1) / max(width, 1)))
-            + 0.1 * abs(math.log(max(h, 1) / max(height or h, 1)))
-            + (0.05 if has_cfg else 0.0)  # prefer default-physics entries
-        )
-        if best is None or dist < best[0]:
-            best = (dist, tile)
-    if best is not None and best[0] < 0.7:  # within ~2x of a measured shape
-        return best[1]
-    costs = {640: 1.0, 512: 1.05, 384: 1.15, 256: 1.4, 128: 2.0}
-    best, best_cost = 640, float("inf")
-    for tw, c in costs.items():
-        padded = -(-width // tw) * tw
-        score = padded * c
-        if score < best_cost:
-            best, best_cost = tw, score
-    return (8, best)
 
-# params vector layout (fp32[32], SMEM)
+# params vector layout (fp32[32])
 _P_CAM = 0  # 0:3 camera position
 _P_FWD = 3  # 3:6 forward
 _P_RIGHT = 6  # 6:9 right
@@ -186,1496 +93,22 @@ _P_BH = 12  # 12:15 black hole position
 _P_RS = 15
 _P_FOVF = 16  # tan(fov / 2)
 _P_SPIN = 17
-_P_DT = 18
-_P_ESC = 19  # escape radius
-_P_CAP = 20  # capture radius
-_P_RISCO = 21
-_P_ROUTER = 22
-_P_WF = 23  # float(width) — FULL image width (for ray-gen UVs)
-_P_HF = 24  # float(height) — FULL image height
-_P_ASPECT = 25
-_P_ROW0 = 26  # first global pixel row of this shard (0 on a single device)
-_P_COL0 = 27  # first global pixel column of this shard
-_P_STRIDE = 28  # pixel stride for subsampled ray-gen (multires low pass)
-_P_TISCO = 29  # disk inner-edge temperature (models/disk.py T_ISCO)
+_P_CAP = 18  # capture radius
+_P_WF = 19  # float(width) — FULL image width (for ray-gen UVs)
+_P_HF = 20  # float(height) — FULL image height
+_P_ASPECT = 21
+_P_ROW0 = 22  # first global pixel row of this band (0 on a single device)
 _P_SIZE = 32
 
 
-# ---- tuple-vec3 helpers over (TH, TW) planes -------------------------------
-
-
-def _vdot(a, b):
-    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
-
-
-def _vadd(a, b):
-    return (a[0] + b[0], a[1] + b[1], a[2] + b[2])
-
-
-def _vscale(a, s):
-    return (a[0] * s, a[1] * s, a[2] * s)
-
-
-def _vaxpy(a, b, s):  # a + b * s
-    return (a[0] + b[0] * s, a[1] + b[1] * s, a[2] + b[2] * s)
-
-
-def _vwhere(m, a, b):
-    return (
-        jnp.where(m, a[0], b[0]),
-        jnp.where(m, a[1], b[1]),
-        jnp.where(m, a[2], b[2]),
-    )
-
-
-def _vcross(a, b):
-    return (
-        a[1] * b[2] - a[2] * b[1],
-        a[2] * b[0] - a[0] * b[2],
-        a[0] * b[1] - a[1] * b[0],
-    )
-
-
-def _use_stateless(config, track_steps: bool, fast_math: bool) -> bool:
-    """Single predicate for the stateless (dt-freeze) kernel flavors.
-
-    kerr_lt's exact tier and plugin physics (model="custom") stay on the
-    scratch-status kernel: the dt-freeze scheme needs per-model freeze-guard
-    algebra that keeps frozen rays' arithmetic finite, which is only
-    verified for the built-in models.
-    """
-    return (
-        not track_steps
-        and (fast_math or config.model != "kerr_lt")
-        and config.model != "custom"
-    )
-
-
-def build_kernel(
-    config: TraceConfig,
-    max_steps: int,
-    tile,
-    fast_math: bool,
-    early_exit_every: int = 1,
-    track_steps: bool = True,
-    unroll: int = 1,
-    steps_per_check: int = 1,
-    shade_inline: bool = False,
-    shade_seed: int = 2020,
-    linear: bool = False,
-    native_ops: bool = False,
-    masked: bool = False,
-    strided: bool = False,
-):
-    """Construct the trace kernel for a static configuration.
-
-    `early_exit_every`: how often (in integration steps) the per-tile
-    all-rays-done check runs. 1 = every step (max early-exit win),
-    N = every N steps (amortizes the cross-lane reduction + scalar sync
-    the check costs), 0 = never (pure fixed-trip loop). Masked updates keep
-    results identical for every setting.
-
-    `linear` (stateless flavors only): the grid runs over FLAT pixel ids
-    instead of (row, col) tiles, and ray-gen decodes y = id div W,
-    x = id mod W in-kernel (exact integer arithmetic in fp32 — all values
-    < 2^24). Kills tile-padding waste for widths that don't divide by the
-    tile width (e.g. 28% at 800 wide with (8, 512) tiles -> 0.7%); decoded
-    (y, x) are bit-identical to the 2-D iotas, so results don't change.
-
-    `native_ops` (exact tier, real-TPU compilation only): the v5e's native
-    fp32 divide lowering is reciprocal-estimate + one Newton refinement +
-    multiply — scripts/ieee_probe.py bit-matches it on 4M log-uniform
-    samples (0 ulp; note the native divide is NOT IEEE-correctly-rounded:
-    it differs from the host's by up to 2 ulp on ~35% of inputs, so "exact"
-    has always meant "the TPU oracle's own lowering"). When a step divides
-    several numerators by ONE denominator (x/r, y/r, z/r, rs/r share r; the
-    renormalization's three share |v|), computing that refinement once and
-    multiplying per numerator is bit-identical to the per-quotient native
-    divisions at ~1/3 the op count. Off for interpret mode, where
-    pl.reciprocal is a true reciprocal and the sequence would NOT match
-    native division bits.
-    """
-    th, tw = tile
-    # turbo sub-stepping (inlining steps_per_check SELF-GATED steps per
-    # loop trip — see one_step below; results are identical for every
-    # setting) only applies to the stateless kernel with compatible loop
-    # bounds; silently fall back to 1 otherwise. kerr_lt keeps the scratch
-    # kernel in the exact tier and its fast substep lacks the one_m clamp
-    # that keeps frozen rays' arithmetic finite, so it stays excluded.
-    if steps_per_check > 1:
-        ok = (
-            config.integrator in ("euler", "rk4", "leapfrog")
-            and not track_steps
-            and config.model in ("schwarzschild", "flat", "kerr")
-            and max_steps % steps_per_check == 0
-            and (early_exit_every == 0 or (
-                early_exit_every % steps_per_check == 0
-                and max_steps % early_exit_every == 0))
-        )
-        if not ok:
-            steps_per_check = 1
-
-    if fast_math:
-
-        def _vnorm(v):  # approximate: v * rsqrt(v.v)
-            return _vscale(v, jax.lax.rsqrt(_vdot(v, v)))
-
-        def _recip(x):
-            return pl.reciprocal(x, approx=True)
-
-    else:
-
-        def _vnorm(v):  # IEEE divisions — bit-parity with oracle's v / sqrt(v.v)
-            s = jnp.sqrt(_vdot(v, v))
-            return (v[0] / s, v[1] / s, v[2] / s)
-
-        def _recip(x):
-            return 1.0 / x
-
-    def _shared_div(b):
-        """Returns a function a -> a/b. With native_ops, hoists the native
-        divide's reciprocal refinement (bit-identical, see `native_ops` in
-        the docstring) so same-denominator division groups pay it once.
-
-        PRECONDITION: b > 0 (finite). At b == 0 the hoisted form yields
-        NaN (1 - 0*inf) where a native divide gives inf — every current
-        call site guards its denominator positive (freeze guards / radius
-        floors); new callers must keep that pattern."""
-        if native_ops:
-            y0 = pl.reciprocal(b, approx=True)
-            e = 1.0 - b * y0
-            y = y0 + y0 * e
-            return lambda a: a * y
-        return lambda a: a / b
-
-    def accel(rel, vel, r, r2, rs, spin):
-        """Spacetime acceleration on component planes.
-
-        Mirrors models/schwarzschild.py `acceleration` (reference wgsl:69-79)
-        and models/kerr.py frame dragging; arithmetic order kept identical to
-        the oracle for parity. model="custom" dispatches to the user plugin
-        (TraceConfig.custom_accel) — same plane signature, traced straight
-        into the kernel (the --shader hot-swap analog, ref lib.rs:425-429).
-        """
-        if config.model == "custom":
-            return config.custom_accel(rel, vel, r, r2, rs, spin)
-        if fast_math:
-            inv_r = _recip(r)
-            r_vec = _vscale(rel, inv_r)
-            rs_over_r = rs * inv_r
-            one_m = 1.0 - rs_over_r
-            factor = rs * _recip(2.0 * r2 * one_m)
-        else:
-            # literal divisions — bit-parity with the oracle / wgsl:70-74
-            inv_r = 1.0 / r
-            r_vec = (rel[0] / r, rel[1] / r, rel[2] / r)
-            rs_over_r = rs / r
-            one_m = 1.0 - rs_over_r
-            factor = rs / (2.0 * r * r * one_m)  # r*r of the sqrt'd r (wgsl:74)
-        v_rad = _vdot(vel, r_vec)
-        one_p = 1.0 + rs_over_r
-        ax = (
-            -factor * (vel[0] * one_m - r_vec[0] * v_rad * one_p),
-            -factor * (vel[1] * one_m - r_vec[1] * v_rad * one_p),
-            -factor * (vel[2] * one_m - r_vec[2] * v_rad * one_p),
-        )
-        if config.model == "flat":
-            z = jnp.zeros_like(rel[0])
-            return (z, z, z)
-        if config.model == "kerr_lt":
-            # Lense-Thirring gravito-magnetic term, spin axis +Y
-            m = rs * 0.5
-            j = spin * m * m
-            inv_r3 = inv_r * inv_r * inv_r
-            jdotr = r_vec[1]  # J_hat . r_hat with J_hat = +Y
-            bg = (
-                j * inv_r3 * (3.0 * jdotr * r_vec[0]),
-                j * inv_r3 * (3.0 * jdotr * r_vec[1] - 1.0),
-                j * inv_r3 * (3.0 * jdotr * r_vec[2]),
-            )
-            drag = _vcross(vel, bg)
-            ax = _vadd(ax, drag)
-        return ax
-
-    def step_fn(rel, vel, r, r2, rs, spin, dt):
-        if config.integrator == "euler":
-            # semi-implicit Euler (wgsl:80-85): v' first, p' with v'
-            a = accel(rel, vel, r, r2, rs, spin)
-            nv = _vaxpy(vel, a, dt)
-            np_ = _vaxpy(rel, nv, dt)
-            return np_, nv
-        if config.integrator == "leapfrog":
-            # corrected kick-drift-kick (ROADMAP.md:179-190); mirrors
-            # ops/geodesic.leapfrog_step's operation order
-            half = 0.5 * dt
-            a1 = accel(rel, vel, r, r2, rs, spin)
-            vh = _vaxpy(vel, a1, half)
-            np_ = _vaxpy(rel, vh, dt)
-            rr = jnp.maximum(
-                jnp.sqrt(_vdot(np_, np_)), 1.0001 * jnp.maximum(rs, 1e-6)
-            )
-            a2a = accel(np_, vh, rr, rr * rr, rs, spin)
-            vp = _vaxpy(vh, a2a, half)
-            a2 = accel(np_, vp, rr, rr * rr, rs, spin)
-            return np_, _vaxpy(vh, a2, half)
-        # classic RK4 on (pos, vel) (docs/ROADMAP.md:169-176)
-        guard = 1.0001 * jnp.maximum(rs, 1e-6)
-
-        def deriv(p, v):
-            rr2 = _vdot(p, p)
-            rr = jnp.maximum(jnp.sqrt(rr2), guard)
-            return v, accel(p, v, rr, rr * rr, rs, spin)
-
-        k1p, k1v = deriv(rel, vel)
-        k2p, k2v = deriv(_vaxpy(rel, k1p, 0.5 * dt), _vaxpy(vel, k1v, 0.5 * dt))
-        k3p, k3v = deriv(_vaxpy(rel, k2p, 0.5 * dt), _vaxpy(vel, k2v, 0.5 * dt))
-        k4p, k4v = deriv(_vaxpy(rel, k3p, dt), _vaxpy(vel, k3v, dt))
-        sixth = dt * (1.0 / 6.0)
-
-        def comb(k1, k2, k3, k4):
-            return (
-                k1[0] + 2.0 * (k2[0] + k3[0]) + k4[0],
-                k1[1] + 2.0 * (k2[1] + k3[1]) + k4[1],
-                k1[2] + 2.0 * (k2[2] + k3[2]) + k4[2],
-            )
-
-        np_ = _vaxpy(rel, comb(k1p, k2p, k3p, k4p), sixth)
-        nv = _vaxpy(vel, comb(k1v, k2v, k3v, k4v), sixth)
-        return np_, nv
-
-    # Stateless kernel: freezing terminated rays with dt_eff = dt *
-    # stepping makes termination a pure function of geometry — a captured
-    # ray stays inside the capture sphere and an escaped ray stays outside
-    # the escape sphere, so the stepping mask re-derives itself from r^2
-    # every iteration. No status scratch, no VMEM traffic in the loop, no
-    # selects: the whole ray state lives in vector registers. Disk hits
-    # join the same scheme by TELEPORTING the ray to a sentinel position
-    # outside the escape sphere (y = 2.5 * escape_r) that encodes the hit
-    # point in x/z; rk4 works because dt_eff = 0 zeroes every k. Selected
-    # whenever per-ray step counts aren't needed; status is recovered from
-    # the final geometry after the loop.
-    #
-    # Works in BOTH math tiers: fast (rsqrt/approx-reciprocal, folded
-    # coefficients) and exact (IEEE sqrt/divide in the oracle's operation
-    # order — physics_substep_exact keeps live-ray arithmetic bit-identical
-    # to the scratch-status kernel while freezing via x*m + (1-m)*c guards,
-    # which are exact no-ops for m = 1). The exact tier replaced the
-    # scratch-status kernel as the BHR_BENCH_FAST=0 benchmark path: the
-    # per-step VMEM status traffic + select-freezing cost ~2x (31 ms vs
-    # 15.3 ms at 1080p x 500). kerr_lt has no exact stateless form (its
-    # fast path folds the LT drag differently) and keeps the scratch kernel.
-    use_stateless = _use_stateless(config, track_steps, fast_math)
-
-    def sl_deriv(p, v, rs, spin, clamp_one_m):
-        """Folded-acceleration derivative for the stateless rk4 path."""
-        rr2 = _vdot(p, p)
-        inv_rr = jax.lax.rsqrt(rr2)
-        rs_inv = rs * inv_rr
-        one_m = 1.0 - rs_inv
-        if clamp_one_m:
-            one_m = jnp.maximum(one_m, 0.02)
-        factor = rs * pl.reciprocal(2.0 * rr2 * one_m, approx=True)
-        c = _vdot(v, p)
-        a1 = factor * one_m
-        a2 = factor * (1.0 + rs_inv) * c * (inv_rr * inv_rr)
-        a = (
-            p[0] * a2 - v[0] * a1,
-            p[1] * a2 - v[1] * a1,
-            p[2] * a2 - v[2] * a1,
-        )
-        if config.model == "kerr_lt":
-            mm = rs * 0.5
-            j = spin * mm * mm
-            inv_r3 = inv_rr * inv_rr * inv_rr
-            jr = p[1] * inv_rr
-            bg = (
-                j * inv_r3 * (3.0 * jr * p[0] * inv_rr),
-                j * inv_r3 * (3.0 * jr * p[1] * inv_rr - 1.0),
-                j * inv_r3 * (3.0 * jr * p[2] * inv_rr),
-            )
-            a = _vadd(a, _vcross(v, bg))
-        return a
-
-    def sl_rk4(rel, vel, dt, rs, spin):
-        """Classic RK4 on (rel, vel); substeps clamp one_m (they may probe
-        just inside the horizon for about-to-be-captured rays)."""
-        if config.model == "flat":
-            # straight-line propagation: flat spacetime has zero
-            # acceleration, so every RK4 stage derivative is just vel
-            return _vaxpy(rel, vel, dt), vel
-        half = 0.5 * dt
-        k1v = sl_deriv(rel, vel, rs, spin, True)
-        p2 = _vaxpy(rel, vel, half)
-        v2 = _vaxpy(vel, k1v, half)
-        k2v = sl_deriv(p2, v2, rs, spin, True)
-        p3 = _vaxpy(rel, v2, half)
-        v3 = _vaxpy(vel, k2v, half)
-        k3v = sl_deriv(p3, v3, rs, spin, True)
-        p4 = _vaxpy(rel, v3, dt)
-        v4 = _vaxpy(vel, k3v, dt)
-        k4v = sl_deriv(p4, v4, rs, spin, True)
-        sixth = dt * (1.0 / 6.0)
-        kp = (
-            vel[0] + 2.0 * (v2[0] + v3[0]) + v4[0],
-            vel[1] + 2.0 * (v2[1] + v3[1]) + v4[1],
-            vel[2] + 2.0 * (v2[2] + v3[2]) + v4[2],
-        )
-        kv = (
-            k1v[0] + 2.0 * (k2v[0] + k3v[0]) + k4v[0],
-            k1v[1] + 2.0 * (k2v[1] + k3v[1]) + k4v[1],
-            k1v[2] + 2.0 * (k2v[2] + k3v[2]) + k4v[2],
-        )
-        new_rel = _vaxpy(rel, kp, sixth)
-        nv = _vaxpy(vel, kv, sixth)
-        return new_rel, _vscale(nv, jax.lax.rsqrt(_vdot(nv, nv)))
-
-    def sl_leapfrog(rel, vel, dt, rs, spin):
-        """Corrected kick-drift-kick with the folded fast acceleration
-        (one fixed-point iteration on the final kick — see
-        geodesic.leapfrog_step)."""
-        if config.model == "flat":
-            return _vaxpy(rel, vel, dt), vel
-        half = 0.5 * dt
-        a1 = sl_deriv(rel, vel, rs, spin, True)
-        vh = _vaxpy(vel, a1, half)
-        new_rel = _vaxpy(rel, vh, dt)
-        a2a = sl_deriv(new_rel, vh, rs, spin, True)
-        vp = _vaxpy(vh, a2a, half)
-        a2 = sl_deriv(new_rel, vp, rs, spin, True)
-        nv = _vaxpy(vh, a2, half)
-        return new_rel, _vscale(nv, jax.lax.rsqrt(_vdot(nv, nv)))
-
-    # ---- exact Kerr: Hamiltonian geodesics in Kerr-Schild form ------------
-    # Plane transcription of models/kerr_schild.py (q = position rel to BH,
-    # p = covariant momentum with p_t = -1). KS coordinates are horizon-
-    # penetrating: every quantity below is finite through r_+, so the
-    # dt-freeze scheme needs no clamps. _recip/jnp.sqrt follow the kernel's
-    # fast/IEEE flavor.
-    is_ks = config.model == "kerr"
-
-    def ks_r2(q, a2):
-        """KS radial coordinate squared (== |q|^2 at spin 0)."""
-        rho2 = _vdot(q, q)
-        b = rho2 - a2
-        disc = jnp.sqrt(b * b + 4.0 * a2 * (q[1] * q[1]))
-        return jnp.maximum(0.5 * (b + disc), 1e-12), rho2
-
-    def ks_all(q, p, rs, a):
-        """Aux + derivatives: (dq, dp, r2_ks, rho2, f, l)."""
-        a2 = a * a
-        x, y, z = q
-        px, py, pz = p
-        r2, rho2 = ks_r2(q, a2)
-        r = jnp.sqrt(r2)
-        y2 = y * y
-        w = r2 * r2 + a2 * y2
-        inv_w = _recip(w)
-        m = rs * 0.5
-        r3 = r2 * r
-        f = (2.0 * m) * r3 * inv_w
-        bb = r2 + a2
-        inv_bb = _recip(bb)
-        lx = (r * x + a * z) * inv_bb
-        inv_r = _recip(r)
-        ly = y * inv_r
-        lz = (r * z - a * x) * inv_bb
-        # dr/dq_i = r (r^2 q_i + a^2 y d_iy) / W
-        r_w = r * inv_w
-        drx = r_w * r2 * x
-        dry = r_w * bb * y  # r2 y + a2 y = (r2 + a2) y
-        drz = r_w * r2 * z
-        # df/dq_i = 2M [(3 r^2 W - 4 r^6) dr_i - 2 a^2 y r^3 d_iy] / W^2
-        g1 = (2.0 * m) * (3.0 * r2 * w - 4.0 * r3 * r3) * (inv_w * inv_w)
-        g2 = (4.0 * m) * a2 * r3 * (inv_w * inv_w)
-        dfx = g1 * drx
-        dfy = g1 * dry - g2 * y
-        dfz = g1 * drz
-        # dl_j/dq_i
-        two_r_invbb = 2.0 * r * inv_bb
-        inv_r2 = inv_r * inv_r
-        dlx_x = (x * drx + r) * inv_bb - lx * (two_r_invbb * drx)
-        dlx_y = (x * dry) * inv_bb - lx * (two_r_invbb * dry)
-        dlx_z = (x * drz + a) * inv_bb - lx * (two_r_invbb * drz)
-        dly_x = -y * inv_r2 * drx
-        dly_y = inv_r - y * inv_r2 * dry
-        dly_z = -y * inv_r2 * drz
-        dlz_x = (z * drx - a) * inv_bb - lz * (two_r_invbb * drx)
-        dlz_y = (z * dry) * inv_bb - lz * (two_r_invbb * dry)
-        dlz_z = (z * drz + r) * inv_bb - lz * (two_r_invbb * drz)
-        s = 1.0 + lx * px + ly * py + lz * pz
-        fs = f * s
-        dq = (px - fs * lx, py - fs * ly, pz - fs * lz)
-        hs2 = 0.5 * s * s
-        dp = (
-            hs2 * dfx + fs * (dlx_x * px + dly_x * py + dlz_x * pz),
-            hs2 * dfy + fs * (dlx_y * px + dly_y * py + dlz_y * pz),
-            hs2 * dfz + fs * (dlx_z * px + dly_z * py + dlz_z * pz),
-        )
-        return dq, dp, r2, rho2, f, (lx, ly, lz)
-
-    def ks_substep(q, p, dt_eff, rs, a):
-        """Semi-implicit Euler on (q, p): p' with dp(q, p), q' with dq(q, p')
-        — the reference shader's update order carried to Hamiltonian form."""
-        _, dp, _, _, f, l = ks_all(q, p, rs, a)
-        p2 = _vaxpy(p, dp, dt_eff)
-        # association mirrors ks_all/the oracle's derivs: ((1+lx px)+ly py)+lz pz
-        s2 = 1.0 + l[0] * p2[0] + l[1] * p2[1] + l[2] * p2[2]
-        fs2 = f * s2
-        dq2 = (p2[0] - fs2 * l[0], p2[1] - fs2 * l[1], p2[2] - fs2 * l[2])
-        q2 = _vaxpy(q, dq2, dt_eff)
-        return q2, p2
-
-    def ks_rk4(q, p, dt_eff, rs, a):
-        def f(q, p):
-            dq, dp, _, _, _, _ = ks_all(q, p, rs, a)
-            return dq, dp
-
-        half = 0.5 * dt_eff
-        k1q, k1p = f(q, p)
-        k2q, k2p = f(_vaxpy(q, k1q, half), _vaxpy(p, k1p, half))
-        k3q, k3p = f(_vaxpy(q, k2q, half), _vaxpy(p, k2p, half))
-        k4q, k4p = f(_vaxpy(q, k3q, dt_eff), _vaxpy(p, k3p, dt_eff))
-        sixth = dt_eff * (1.0 / 6.0)
-
-        def comb(k1, k2, k3, k4):
-            # association mirrors the oracle's step_rk4: k1 + 2k2 + 2k3 + k4
-            return (
-                k1[0] + 2.0 * k2[0] + 2.0 * k3[0] + k4[0],
-                k1[1] + 2.0 * k2[1] + 2.0 * k3[1] + k4[1],
-                k1[2] + 2.0 * k2[2] + 2.0 * k3[2] + k4[2],
-            )
-
-        return _vaxpy(q, comb(k1q, k2q, k3q, k4q), sixth), _vaxpy(
-            p, comb(k1p, k2p, k3p, k4p), sixth
-        )
-
-    def ks_leapfrog(q, p, dt_eff, rs, a):
-        """Corrected kick-drift-kick on (q, p) — midpoint drift + final-kick
-        corrector, mirroring the oracle's step_leapfrog (the KS Hamiltonian
-        is non-separable; both corrections are needed for 2nd order)."""
-        half = 0.5 * dt_eff
-        _, dp1, _, _, _, _ = ks_all(q, p, rs, a)
-        ph = _vaxpy(p, dp1, half)
-        dq_a, _, _, _, _, _ = ks_all(q, ph, rs, a)
-        q_mid = _vaxpy(q, dq_a, half)
-        dq_b, _, _, _, _, _ = ks_all(q_mid, ph, rs, a)
-        q2 = _vaxpy(q, dq_b, dt_eff)
-        _, dp2a, _, _, _, _ = ks_all(q2, ph, rs, a)
-        p_pred = _vaxpy(ph, dp2a, half)
-        _, dp2, _, _, _, _ = ks_all(q2, p_pred, rs, a)
-        return q2, _vaxpy(ph, dp2, half)
-
-    def ks_init_p(q0_scalar, d, rs, a):
-        """Null momentum with E = 1 from scalar camera position + direction
-        planes (f/l at the camera are per-frame scalars from SMEM)."""
-        a2 = a * a
-        x, y, z = q0_scalar
-        rho2 = x * x + y * y + z * z
-        b = rho2 - a2
-        r2 = jnp.maximum(0.5 * (b + jnp.sqrt(b * b + 4.0 * a2 * y * y)), 1e-12)
-        r = jnp.sqrt(r2)
-        w = r2 * r2 + a2 * y * y
-        f = (rs) * r2 * r / w  # 2M = rs
-        bb = r2 + a2
-        lx = (r * x + a * z) / bb
-        ly = y / r
-        lz = (r * z - a * x) / bb
-        c = lx * d[0] + ly * d[1] + lz * d[2]
-        disc = jnp.sqrt(jnp.maximum(1.0 - f * (1.0 - c * c), 1e-12))
-        ut = (f * c + disc) / jnp.maximum(1.0 - f, 1e-6)
-        big_l = ut + c
-        fl = f * big_l
-        e_inv = _recip(jnp.maximum(ut - fl, 1e-12))
-        return (
-            (d[0] + fl * lx) * e_inv,
-            (d[1] + fl * ly) * e_inv,
-            (d[2] + fl * lz) * e_inv,
-        )
-
-    def ks_direction(q, p, rs, a):
-        """Normalized coordinate direction dq/dl — the shading direction."""
-        dq, _, _, _, _, _ = ks_all(q, p, rs, a)
-        if fast_math:
-            return _vscale(dq, jax.lax.rsqrt(_vdot(dq, dq)))
-        return _vnorm(dq)
-
-    def _stateless_trace(params, mask_ref=None):
-        """Shared stateless trace loop -> (rel, vel, final r2, bh, cap2, esc2)."""
-        gi = pl.program_id(0)
-        gj = pl.program_id(1)
-        cam = (params[_P_CAM], params[_P_CAM + 1], params[_P_CAM + 2])
-        fwd = (params[_P_FWD], params[_P_FWD + 1], params[_P_FWD + 2])
-        right = (params[_P_RIGHT], params[_P_RIGHT + 1], params[_P_RIGHT + 2])
-        up = (params[_P_UP], params[_P_UP + 1], params[_P_UP + 2])
-        bh = (params[_P_BH], params[_P_BH + 1], params[_P_BH + 2])
-        rs = params[_P_RS]
-        fov_factor = params[_P_FOVF]
-        spin = params[_P_SPIN]
-        base_dt = params[_P_DT]
-        escape_r_param = params[_P_ESC]
-        esc2 = escape_r_param * escape_r_param
-        cap2 = params[_P_CAP] * params[_P_CAP]
-        wf = params[_P_WF]
-        hf = params[_P_HF]
-        aspect = params[_P_ASPECT]
-        row0 = params[_P_ROW0].astype(jnp.int32)
-        col0 = params[_P_COL0].astype(jnp.int32)
-
-        if linear:
-            # flat pixel-id decode: id = (local y) * W + x. Integer-exact in
-            # fp32 for id < 2^24 (a 4K frame is 8.3M pixels); the divide is
-            # a reciprocal estimate corrected by one exact remainder step.
-            ridx = jax.lax.broadcasted_iota(jnp.int32, (th, tw), 0)
-            cidx = jax.lax.broadcasted_iota(jnp.int32, (th, tw), 1)
-            pid = ((gi * th + ridx) * tw + cidx).astype(jnp.float32)
-            yl = jnp.floor(pid * (1.0 / wf))
-            xl = pid - yl * wf
-            # correct the +-1 the reciprocal estimate can be off by
-            neg = (xl < 0.0).astype(jnp.float32)
-            yl = yl - neg
-            xl = xl + neg * wf
-            ovr = (xl >= wf).astype(jnp.float32)
-            yl = yl + ovr
-            xl = xl - ovr * wf
-            rows_f = yl + row0.astype(jnp.float32)
-            cols_f = xl + col0.astype(jnp.float32)
-        else:
-            rows = jax.lax.broadcasted_iota(jnp.int32, (th, tw), 0) + gi * th
-            cols = jax.lax.broadcasted_iota(jnp.int32, (th, tw), 1) + gj * tw
-            if strided:
-                # multires low pass: trace every stride-th FULL-resolution
-                # pixel (wf/hf stay the full image dims), so low pixel j is
-                # exactly full pixel j*stride — the upsample phases then
-                # interpolate between true full-grid samples with no
-                # half-texel convention mismatch
-                stride = params[_P_STRIDE].astype(jnp.int32)
-                rows = rows * stride
-                cols = cols * stride
-            rows_f = (rows + row0).astype(jnp.float32)
-            cols_f = (cols + col0).astype(jnp.float32)
-        u = (cols_f / wf - 0.5) * 2.0 * aspect
-        v = (rows_f / hf - 0.5) * -2.0
-        uf = u * fov_factor
-        vf = v * fov_factor
-        d = (
-            fwd[0] + right[0] * uf + up[0] * vf,
-            fwd[1] + right[1] * uf + up[1] * vf,
-            fwd[2] + right[2] * uf + up[2] * vf,
-        )
-        vel0 = _vnorm(_vnorm(d))
-        ones = jnp.ones((th, tw), jnp.float32)
-        rel0 = (cam[0] - bh[0] + 0.0 * ones, cam[1] - bh[1] + 0.0 * ones,
-                cam[2] - bh[2] + 0.0 * ones)
-        if mask_ref is not None:
-            # multi-resolution edge fix-up (ops/multires.py): rays with
-            # mask 0 start OUTSIDE the escape sphere, so the stateless
-            # termination test freezes them at step 0 — and a tile whose
-            # rays are ALL skipped fails the early-exit cond before its
-            # first trip, costing zero integration steps. Their outputs
-            # (sentinel pos, initial vel, status ESCAPED) are discarded by
-            # the caller's where-merge.
-            keep = mask_ref[...]
-            far = 2.0 * escape_r_param
-            rel0 = (
-                rel0[0] * keep + (1.0 - keep) * far,
-                rel0[1] * keep,
-                rel0[2] * keep,
-            )
-        a_spin = spin * rs * 0.5  # a = a* M, scalar (SMEM)
-        if is_ks:
-            # the "vel" planes carry covariant momentum p for the exact
-            # Kerr model; converted back to a direction after the loop
-            vel0 = ks_init_p(
-                (cam[0] - bh[0], cam[1] - bh[1], cam[2] - bh[2]),
-                vel0, rs, a_spin,
-            )
-
-        def physics_substep(rel, vel, r2, inv_r, dt_eff):
-            """One Euler sub-step with folded coefficients; returns rel', v'."""
-            if config.model == "flat":
-                nv = vel
-            else:
-                c = _vdot(vel, rel)
-                rs_inv_r = rs * inv_r
-                one_m = 1.0 - rs_inv_r
-                if config.model == "schwarzschild":
-                    # a frozen captured ray can sit at r <= rs where
-                    # one_m <= 0 (turbo mode even probes below the horizon);
-                    # unclamped, reciprocal(0) * dt_eff(0) = NaN would poison
-                    # that pixel's velocity forever. Any live Schwarzschild
-                    # ray has one_m >= 1 - 1/1.05 = 0.0476 (capture radius
-                    # 1.05*rs), so the clamp only ever touches doomed (black)
-                    # rays. Kerr's capture radius sits BELOW rs, so live kerr
-                    # rays legitimately reach one_m < 0 — no clamp there
-                    # (matching the exact kernel's unclamped arithmetic).
-                    one_m = jnp.maximum(one_m, 0.02)
-                # dt folded into factor: one plane-op fewer per coefficient
-                factor_dt = (rs * pl.reciprocal(2.0 * r2 * one_m, approx=True)) * dt_eff
-                b1 = 1.0 - factor_dt * one_m
-                b2 = factor_dt * (1.0 + rs_inv_r) * c * (inv_r * inv_r)
-                nv = (
-                    vel[0] * b1 + rel[0] * b2,
-                    vel[1] * b1 + rel[1] * b2,
-                    vel[2] * b1 + rel[2] * b2,
-                )
-                if config.model == "kerr_lt":
-                    # Lense-Thirring drag (models/kerr.py), dt_eff-gated
-                    mm = rs * 0.5
-                    j = spin * mm * mm
-                    inv_r3 = inv_r * inv_r * inv_r
-                    jr = rel[1] * inv_r  # J_hat . r_hat
-                    bgx = j * inv_r3 * (3.0 * jr * rel[0] * inv_r)
-                    bgy = j * inv_r3 * (3.0 * jr * rel[1] * inv_r - 1.0)
-                    bgz = j * inv_r3 * (3.0 * jr * rel[2] * inv_r)
-                    drag = _vcross(vel, (bgx, bgy, bgz))
-                    nv = _vaxpy(nv, drag, dt_eff)
-            new_rel = _vaxpy(rel, nv, dt_eff)
-            nv = _vscale(nv, jax.lax.rsqrt(_vdot(nv, nv)))
-            return new_rel, nv
-
-        def _freeze_guard(x, live, safe):
-            """x for live rays BIT-EXACTLY, `safe` for frozen rays — keeps
-            frozen-ray denominators finite without perturbing live
-            arithmetic. A vector-vector select (1 VPU op; the safe-value
-            broadcast hoists as a loop constant) replacing the round-3
-            arithmetic x*m + (1-m)*safe (3 ops): identical values in both
-            lanes classes, and strictly safer (the arithmetic form turned a
-            non-finite frozen x into NaN via x*0). Scalar-operand selects
-            are the Mosaic relayout bug family (CLAUDE.md constraint 2) —
-            the zeros_like+safe keeps all three operands vector-shaped,
-            the same pattern the in-loop disk teleport select uses."""
-            return jnp.where(live, x, jnp.zeros_like(x) + safe)
-
-        def physics_substep_exact(rel, vel, r, dt_eff, live):
-            """Oracle-order IEEE Euler sub-step (mirrors accel()'s exact
-            branch + wgsl:80-85 update order + per-step renormalization).
-
-            dt_eff = dt * m freezes terminated rays; every quantity a frozen
-            ray evaluates stays finite (guards), and a*0 = +-0 followed by
-            vel + +-0 leaves vel unchanged (up to -0 -> +0, which cannot
-            change any downstream texel)."""
-            if config.model == "flat":
-                nv = vel
-            else:
-                # NOTE: an earlier attempt replaced these divisions with an
-                # XLA-level 1/r (different bits, and measured slower at
-                # 30.2 ms). _shared_div is different: it reproduces the
-                # native divide's own lowering with the refinement hoisted —
-                # bit-identical AND fewer ops (plain a/b in interpret mode).
-                div_r = _shared_div(r)
-                r_vec = (div_r(rel[0]), div_r(rel[1]), div_r(rel[2]))
-                rs_over_r = div_r(rs)
-                one_m = 1.0 - rs_over_r
-                # frozen captured rays can sit at one_m <= 0 (r <= rs)
-                one_m = _freeze_guard(one_m, live, 0.5)
-                factor = rs / (2.0 * r * r * one_m)  # wgsl:74 literal order
-                v_rad = _vdot(vel, r_vec)
-                one_p = 1.0 + rs_over_r
-                # expression trees kept IDENTICAL to accel() + _vaxpy so the
-                # compiler makes the same FMA-contraction choices as the
-                # scratch-status kernel (bit parity across programs)
-                ax = (
-                    -factor * (vel[0] * one_m - r_vec[0] * v_rad * one_p),
-                    -factor * (vel[1] * one_m - r_vec[1] * v_rad * one_p),
-                    -factor * (vel[2] * one_m - r_vec[2] * v_rad * one_p),
-                )
-                nv = _vaxpy(vel, ax, dt_eff)
-            new_rel = _vaxpy(rel, nv, dt_eff)
-            s = jnp.sqrt(_vdot(nv, nv))
-            s = _freeze_guard(s, live, 1.0)  # frozen: divide by exactly 1.0
-            div_s = _shared_div(s)
-            return new_rel, (div_s(nv[0]), div_s(nv[1]), div_s(nv[2]))
-
-        def sl_rk4_exact(rel, vel, dt_eff, live):
-            """IEEE RK4 mirroring ops/geodesic.rk4_step (substep radii
-            guarded away from r = rs exactly like the oracle)."""
-            if config.model == "flat":
-                return _vaxpy(rel, vel, dt_eff), vel
-            guard = 1.0001 * jnp.maximum(rs, 1e-6)
-
-            def deriv(p, v):
-                rr = jnp.maximum(jnp.sqrt(_vdot(p, p)), guard)
-                div_rr = _shared_div(rr)
-                r_vec = (div_rr(p[0]), div_rr(p[1]), div_rr(p[2]))
-                rs_over_r = div_rr(rs)
-                one_m = 1.0 - rs_over_r
-                factor = rs / (2.0 * rr * rr * one_m)
-                v_rad = _vdot(v, r_vec)
-                one_p = 1.0 + rs_over_r
-                return (
-                    -factor * (v[0] * one_m - r_vec[0] * v_rad * one_p),
-                    -factor * (v[1] * one_m - r_vec[1] * v_rad * one_p),
-                    -factor * (v[2] * one_m - r_vec[2] * v_rad * one_p),
-                )
-
-            half = 0.5 * dt_eff
-            k1v = deriv(rel, vel)
-            p2 = _vaxpy(rel, vel, half)
-            v2 = _vaxpy(vel, k1v, half)
-            k2v = deriv(p2, v2)
-            p3 = _vaxpy(rel, v2, half)
-            v3 = _vaxpy(vel, k2v, half)
-            k3v = deriv(p3, v3)
-            p4 = _vaxpy(rel, v3, dt_eff)
-            v4 = _vaxpy(vel, k3v, dt_eff)
-            k4v = deriv(p4, v4)
-            sixth = dt_eff * (1.0 / 6.0)
-            kp = (
-                vel[0] + 2.0 * (v2[0] + v3[0]) + v4[0],
-                vel[1] + 2.0 * (v2[1] + v3[1]) + v4[1],
-                vel[2] + 2.0 * (v2[2] + v3[2]) + v4[2],
-            )
-            kv = (
-                k1v[0] + 2.0 * (k2v[0] + k3v[0]) + k4v[0],
-                k1v[1] + 2.0 * (k2v[1] + k3v[1]) + k4v[1],
-                k1v[2] + 2.0 * (k2v[2] + k3v[2]) + k4v[2],
-            )
-            new_rel = _vaxpy(rel, kp, sixth)
-            nv = _vaxpy(vel, kv, sixth)
-            s = jnp.sqrt(_vdot(nv, nv))
-            s = _freeze_guard(s, live, 1.0)
-            div_s = _shared_div(s)
-            return new_rel, (div_s(nv[0]), div_s(nv[1]), div_s(nv[2]))
-
-        def sl_leapfrog_exact(rel, vel, r, dt_eff, live):
-            """IEEE kick-drift-kick mirroring ops/geodesic.leapfrog_step
-            (a1 at the loop's radius with the oracle's literal division
-            order + freeze guards; a2 at the rk4-style guarded radius)."""
-            if config.model == "flat":
-                return _vaxpy(rel, vel, dt_eff), vel
-            half = 0.5 * dt_eff
-            # a1: identical expression tree to physics_substep_exact's accel
-            div_r = _shared_div(r)
-            r_vec = (div_r(rel[0]), div_r(rel[1]), div_r(rel[2]))
-            rs_over_r = div_r(rs)
-            one_m = 1.0 - rs_over_r
-            one_m = _freeze_guard(one_m, live, 0.5)
-            factor = rs / (2.0 * r * r * one_m)
-            v_rad = _vdot(vel, r_vec)
-            one_p = 1.0 + rs_over_r
-            a1 = (
-                -factor * (vel[0] * one_m - r_vec[0] * v_rad * one_p),
-                -factor * (vel[1] * one_m - r_vec[1] * v_rad * one_p),
-                -factor * (vel[2] * one_m - r_vec[2] * v_rad * one_p),
-            )
-            vh = _vaxpy(vel, a1, half)
-            new_rel = _vaxpy(rel, vh, dt_eff)
-            guard = 1.0001 * jnp.maximum(rs, 1e-6)
-            rr = jnp.maximum(jnp.sqrt(_vdot(new_rel, new_rel)), guard)
-            div_rr = _shared_div(rr)
-            r_vec2 = (div_rr(new_rel[0]), div_rr(new_rel[1]), div_rr(new_rel[2]))
-            rs_over_r2 = div_rr(rs)
-            one_m2 = 1.0 - rs_over_r2
-            factor2 = rs / (2.0 * rr * rr * one_m2)
-            one_p2 = 1.0 + rs_over_r2
-
-            def a_at(v):
-                v_rad2 = _vdot(v, r_vec2)
-                return (
-                    -factor2 * (v[0] * one_m2 - r_vec2[0] * v_rad2 * one_p2),
-                    -factor2 * (v[1] * one_m2 - r_vec2[1] * v_rad2 * one_p2),
-                    -factor2 * (v[2] * one_m2 - r_vec2[2] * v_rad2 * one_p2),
-                )
-
-            vp = _vaxpy(vh, a_at(vh), half)  # corrector (see leapfrog_step)
-            nv = _vaxpy(vh, a_at(vp), half)
-            s = jnp.sqrt(_vdot(nv, nv))
-            s = _freeze_guard(s, live, 1.0)
-            div_s = _shared_div(s)
-            return new_rel, (div_s(nv[0]), div_s(nv[1]), div_s(nv[2]))
-
-        disk_sentinel_y = 2.5 * escape_r_param
-        r_isco = params[_P_RISCO]
-        r_outer = params[_P_ROUTER]
-
-        def one_step(rel, vel):
-            """One SELF-GATED integration step: termination mask -> dt_eff
-            -> physics -> disk test, exactly the oracle's per-step order.
-
-            steps_per_check > 1 ("turbo") inlines this whole step that many
-            times per loop trip. Because every step re-derives its own mask
-            (the r^2 dot product is needed by the physics anyway — the mask
-            adds only compares and one select-equivalent), turbo is a PURE
-            loop restructuring: results are identical for every
-            steps_per_check setting, in both math tiers, including
-            rk4 / adaptive / disk configs. The win is trip-count reduction:
-            Mosaic schedules the inlined group as one straight-line block
-            (its fori_loop cannot partially unroll), which is worth ~30% at
-            1080p x 500."""
-            if is_ks:
-                # escape on coordinate distance, capture on the KS radial
-                # coordinate (the horizon lives at r_+ in KS r)
-                r2cap, r2 = ks_r2(rel, a_spin * a_spin)
-                if fast_math:
-                    stepping = (r2 <= esc2) & (r2cap >= cap2)
-                    r_exact = None
-                else:
-                    # exact tier mirrors the oracle's sqrt'd-radius compares
-                    rho = jnp.sqrt(r2)
-                    r_exact = jnp.sqrt(r2cap)
-                    stepping = (rho <= escape_r_param) & (r_exact >= params[_P_CAP])
-                m = stepping.astype(jnp.float32)
-            elif fast_math:
-                r2cap = r2 = _vdot(rel, rel)
-                # in-bounds == still integrating; frozen rays stay out of bounds
-                stepping = (r2 <= esc2) & (r2 >= cap2)
-                m = stepping.astype(jnp.float32)
-                r_exact = None
-            else:
-                # exact tier: compare the sqrt'd radius against the raw
-                # radii exactly like the oracle (r^2-space comparisons can
-                # disagree by an ulp at the boundary)
-                r2cap = r2 = _vdot(rel, rel)
-                r_exact = jnp.sqrt(r2)
-                stepping = (r_exact <= escape_r_param) & (r_exact >= params[_P_CAP])
-                m = stepping.astype(jnp.float32)
-            if config.adaptive:
-                if r_exact is None:
-                    rc = r2cap * jax.lax.rsqrt(r2cap)
-                else:
-                    rc = r_exact
-                dt_eff = base_dt * jnp.clip((rc - rs) * 0.1, 0.01, 1.0) * m
-            else:
-                dt_eff = base_dt * m
-            old_rel = rel
-            if is_ks:
-                if config.integrator == "rk4":
-                    rel, vel = ks_rk4(rel, vel, dt_eff, rs, a_spin)
-                elif config.integrator == "leapfrog":
-                    rel, vel = ks_leapfrog(rel, vel, dt_eff, rs, a_spin)
-                else:
-                    rel, vel = ks_substep(rel, vel, dt_eff, rs, a_spin)
-            elif config.integrator == "rk4":
-                if fast_math:
-                    rel, vel = sl_rk4(rel, vel, dt_eff, rs, spin)
-                else:
-                    rel, vel = sl_rk4_exact(rel, vel, dt_eff, stepping)
-            elif config.integrator == "leapfrog":
-                if fast_math:
-                    rel, vel = sl_leapfrog(rel, vel, dt_eff, rs, spin)
-                else:
-                    rel, vel = sl_leapfrog_exact(rel, vel, r_exact, dt_eff, stepping)
-            elif fast_math:
-                rel, vel = physics_substep(rel, vel, r2, jax.lax.rsqrt(r2), dt_eff)
-            else:
-                rel, vel = physics_substep_exact(rel, vel, r_exact, dt_eff, stepping)
-            if config.disk:
-                # equatorial crossing in the annulus -> teleport to the
-                # sentinel: y = 2.5 * escape_r marks "disk hit", x/z keep
-                # the hit point, and the ray self-freezes (it now sits
-                # outside the escape sphere). Frozen/sentinel rays never
-                # re-trigger (oy * ny = oy^2 >= 0).
-                oy, ny = old_rel[1], rel[1]
-                crosses = oy * ny < 0.0
-                den = jnp.where(crosses, ny - oy, 1.0)
-                tt = -oy * (pl.reciprocal(den, approx=True) if fast_math else 1.0 / den)
-                hx = old_rel[0] + tt * (rel[0] - old_rel[0])
-                hz = old_rel[2] + tt * (rel[2] - old_rel[2])
-                hr2 = hx * hx + hz * hz
-                hit = crosses & (hr2 >= r_isco * r_isco) & (hr2 <= r_outer * r_outer)
-                rel = _vwhere(hit, (hx, jnp.zeros_like(hx) + disk_sentinel_y, hz), rel)
-            return rel, vel
-
-        def body(carry):
-            i, relx, rely, relz, velx, vely, velz = carry
-            rel = (relx, rely, relz)
-            vel = (velx, vely, velz)
-            for _ in range(steps_per_check):
-                rel, vel = one_step(rel, vel)
-            return (i + jnp.int32(steps_per_check),
-                    rel[0], rel[1], rel[2], vel[0], vel[1], vel[2])
-
-        init = (jnp.int32(0), *rel0, *vel0)
-        if early_exit_every == 0:
-            carry = jax.lax.fori_loop(
-                0, max_steps // steps_per_check, lambda k, c: body(c), init,
-                unroll=unroll,
-            )
-        else:
-            n_inner = max(early_exit_every, 1) // steps_per_check
-
-            def cond(carry):
-                rel = (carry[1], carry[2], carry[3])
-                if is_ks:
-                    r2cap, r2 = ks_r2(rel, a_spin * a_spin)
-                    if fast_math:
-                        live = (r2 <= esc2) & (r2cap >= cap2)
-                    else:
-                        live = (jnp.sqrt(r2) <= escape_r_param) & (
-                            jnp.sqrt(r2cap) >= params[_P_CAP]
-                        )
-                elif fast_math:
-                    r2 = _vdot(rel, rel)
-                    live = (r2 <= esc2) & (r2 >= cap2)
-                else:
-                    # must mirror the body's r-space comparisons exactly:
-                    # an r^2-space check could retire a boundary ray an
-                    # iteration early and break bit parity
-                    r = jnp.sqrt(_vdot(rel, rel))
-                    live = (r <= escape_r_param) & (r >= params[_P_CAP])
-                return jnp.logical_and(carry[0] < max_steps, jnp.any(live))
-
-            if max_steps % n_inner == 0:
-                def outer_body(carry):
-                    return jax.lax.fori_loop(
-                        0, n_inner, lambda k, c: body(c), carry, unroll=unroll
-                    )
-            else:
-                def outer_body(carry):
-                    n_this = jnp.minimum(jnp.int32(n_inner), max_steps - carry[0])
-                    return jax.lax.fori_loop(0, n_this, lambda k, c: body(c), carry)
-
-            carry = jax.lax.while_loop(cond, outer_body, init)
-
-        _, relx, rely, relz, velx, vely, velz = carry
-        rel = (relx, rely, relz)
-        vel = (velx, vely, velz)
-        disk_thresh = 1.5 * escape_r_param  # sentinel y = 2.5 * escape_r
-        if is_ks:
-            r2cap, r2 = ks_r2(rel, a_spin * a_spin)
-            if config.disk:
-                # disk hits sit at the y-sentinel, but the shading direction
-                # dq/dl = p - f S l must be evaluated with the metric at the
-                # REAL hit point (y = 0) — at the sentinel f is ~0 and the
-                # Doppler g-factor would use the raw momentum instead
-                is_disk_m = (rel[1] > disk_thresh).astype(jnp.float32)
-                dir_rel = (rel[0], rel[1] * (1.0 - is_disk_m), rel[2])
-            else:
-                dir_rel = rel
-            # p (frozen at termination) -> coordinate direction for shading
-            vel = ks_direction(dir_rel, vel, rs, a_spin)
-        else:
-            r2cap = r2 = _vdot(rel, rel)
-        return rel, vel, r2, r2cap, bh, cap2, esc2, disk_thresh
-
-    def kernel_stateless(params, *refs):
-        if masked:
-            mask_ref, *outs = refs
-        else:
-            mask_ref, outs = None, list(refs)
-        px_o, py_o, pz_o, vx_o, vy_o, vz_o, status_o, steps_o = outs
-        rel, vel, r2, r2cap, bh, cap2, esc2, disk_thresh = _stateless_trace(
-            params, mask_ref
-        )
-        if config.disk:
-            is_disk = rel[1] > disk_thresh
-            px_o[:] = rel[0] + bh[0]
-            # disk-hit rays sit at the y-sentinel; their real y is 0
-            py_o[:] = jnp.where(is_disk, jnp.zeros_like(rel[1]), rel[1]) + bh[1]
-            pz_o[:] = rel[2] + bh[2]
-            disk_i = is_disk.astype(jnp.int32)
-            status_o[:] = (
-                disk_i * STATUS_DISK
-                + (1 - disk_i)
-                * (
-                    (r2cap < cap2).astype(jnp.int32) * STATUS_CAPTURED
-                    + (r2 > esc2).astype(jnp.int32) * STATUS_ESCAPED
-                )
-            )
-        else:
-            px_o[:] = rel[0] + bh[0]
-            py_o[:] = rel[1] + bh[1]
-            pz_o[:] = rel[2] + bh[2]
-            status_o[:] = (
-                (r2cap < cap2).astype(jnp.int32) * STATUS_CAPTURED
-                + (r2 > esc2).astype(jnp.int32) * STATUS_ESCAPED
-            )
-        vx_o[:] = vel[0]
-        vy_o[:] = vel[1]
-        vz_o[:] = vel[2]
-        steps_o[:] = jnp.zeros((th, tw), jnp.int32)
-
-    def _lut_scalar_lerp(lut_ref, t_cl, n):
-        """Piecewise-linear blackbody color from an SMEM scalar LUT.
-
-        Mosaic has no general in-kernel gather (a per-lane roll "butterfly"
-        does not compose — measured 2% agreement in
-        scripts/lut_butterfly_probe.py), but the blackbody locus is a
-        SMOOTH curve, so a small LUT evaluates exactly as a sum of masked
-        linear segments over SMEM scalars:
-
-            c = sum_e [i0 == e] * (C[e] + frac * (C[e+1] - C[e]))
-
-        — ~9 VPU ops per entry, once per PIXEL (vs ~15 ms/frame for the
-        two XLA LUT gathers of the staged epilogue at 1080p). lut_ref is
-        channel-major fp32[3 * n] in SMEM; t_cl is the clipped fractional
-        index plane in [0, n - 1]."""
-        i0f = jnp.floor(t_cl)
-        frac = t_cl - i0f
-        zero = jnp.zeros_like(t_cl)
-        out = [zero, zero, zero]
-        for e in range(n):
-            m = (i0f == float(e)).astype(jnp.float32)
-            mf = m * frac
-            for c in range(3):
-                c0 = lut_ref[c * n + e]
-                c1 = lut_ref[c * n + min(e + 1, n - 1)]
-                out[c] = out[c] + m * c0 + mf * (c1 - c0)
-        return out
-
-    def _shade_disk(params, rel, vel, lut_ref, rgb, disk_thresh):
-        """In-kernel accretion-disk emission on component planes.
-
-        Plane transcription of models/disk.py disk_emission (reference
-        formulation: docs/ROADMAP.md:285-470): Keplerian beta, Doppler x
-        gravitational g-factor, T(r) ~ r^-3/4 (computed as
-        rsqrt(x) * rsqrt(sqrt(x)) — no pow in-kernel), blackbody color via
-        the butterfly LUT (10-bit-quantized channels), beaming 1/g^3.
-        Fast-math tier only; the exact tier keeps the staged epilogue."""
-        rs = params[_P_RS]
-        r_isco = params[_P_RISCO]
-        r_outer = params[_P_ROUTER]
-        t_isco = params[_P_TISCO]
-        is_disk = rel[1] > disk_thresh
-        hx, hz = rel[0], rel[2]
-        dr2 = hx * hx + hz * hz
-        inv_dr = jax.lax.rsqrt(jnp.maximum(dr2, 1e-12))
-        dr = dr2 * inv_dr
-        m = rs * 0.5
-        beta2 = jnp.clip(m * inv_dr, 0.0, 0.81)
-        beta = jnp.sqrt(beta2)
-        # unit tangent (z, 0, -x)/dr dotted with the (unit) ray direction
-        cos_t = (hz * vel[0] - hx * vel[2]) * inv_dr
-        doppler = (1.0 - beta * cos_t) * jax.lax.rsqrt(1.0 - beta2)
-        grav_emit = jnp.sqrt(
-            jnp.clip(
-                1.0
-                - rs * pl.reciprocal(jnp.maximum(dr, 1.001 * rs), approx=True),
-                1e-4,
-                1.0,
-            )
-        )
-        # observer redshift: scalar from SMEM camera/bh
-        ox = params[_P_CAM] - params[_P_BH]
-        oy = params[_P_CAM + 1] - params[_P_BH + 1]
-        oz = params[_P_CAM + 2] - params[_P_BH + 2]
-        obs_r = jnp.sqrt(ox * ox + oy * oy + oz * oz)
-        grav_obs = jnp.sqrt(
-            jnp.clip(1.0 - rs / jnp.maximum(obs_r, 1.001 * rs), 1e-4, 1.0)
-        )
-        gfac = jnp.maximum(doppler * (grav_emit / grav_obs), 1e-3)
-        inv_g = pl.reciprocal(gfac, approx=True)
-        # scalar denominators: plain scalar divides (pl.reciprocal only
-        # lowers for vectors)
-        x = jnp.maximum(dr * (1.0 / r_isco), 1e-6)
-        t_emit = t_isco * (jax.lax.rsqrt(x) * jax.lax.rsqrt(jnp.sqrt(x)))
-        t_obs = t_emit * inv_g
-        beaming = inv_g * inv_g * inv_g
-        rel_t = t_obs * jnp.float32(1.0 / _DISK_T_ISCO)
-        edge = jnp.clip((r_outer - dr) * (1.0 / (r_outer - r_isco)), 0.0, 1.0)
-        intensity = jnp.clip(beaming * rel_t * rel_t * edge, 0.0, 4.0)
-        n = _DISK_KERNEL_LUT_STEPS
-        t_cl = jnp.clip(
-            (t_obs - _DISK_T_MIN)
-            * jnp.float32((n - 1) / (_DISK_T_MAX - _DISK_T_MIN)),
-            0.0,
-            float(n - 1),
-        )
-        color = _lut_scalar_lerp(lut_ref, t_cl, n)
-        return tuple(
-            jnp.where(is_disk, c * intensity, base)
-            for c, base in zip(color, rgb)
-        )
-
-    def kernel_monolithic(params, *refs):
-        """Trace + shade fused in one kernel: a single packed-u32 RGBA
-        output plane per tile (analytic cube-hash background; captured rays
-        black; with config.disk, in-kernel relativistic disk emission via
-        the butterfly LUT — fast tier only). Skips ~8 HBM output planes and
-        the separate XLA shading dispatch. The exact tier quantizes with a
-        true round-half-even sequence and where-masks, keeping frames
-        bit-identical to the staged epilogue's jnp.round / jnp.where."""
-        from .starfield import procedural_background
-
-        if config.disk:
-            lut_ref, frame_o = refs
-        else:
-            (frame_o,) = refs
-        rel, vel, r2, r2cap, bh, cap2, esc2, disk_thresh = _stateless_trace(params)
-        r, g, b = procedural_background(vel[0], vel[1], vel[2], seed=shade_seed)
-        if config.disk:
-            r, g, b = _shade_disk(
-                params, rel, vel, lut_ref, (r, g, b), disk_thresh
-            )
-        captured = r2cap < cap2  # == (status == STATUS_CAPTURED), see below
-        if fast_math:
-            live = (~captured).astype(jnp.float32)
-
-            # round-half-up quantization (cheaper than round-to-even;
-            # within the fast tier's tolerance vs the epilogue's jnp.round)
-            def q(c):
-                # f32 -> i32 -> u32: Mosaic has no direct f32->u32 cast
-                return (
-                    jnp.floor(jnp.clip(c * live, 0.0, 1.0) * 255.0 + 0.5)
-                    .astype(jnp.int32)
-                    .astype(jnp.uint32)
-                )
-
-        else:
-            zero = jnp.zeros_like(r)
-
-            def q(c):
-                # mirror shade_planes_packed exactly: where-mask, clip,
-                # *255, round-half-even. floor/subtract are exact for
-                # x in [0, 256), so this IS jnp.round bit-for-bit (Mosaic
-                # has no round-to-even instruction to lower jnp.round to)
-                x = jnp.clip(jnp.where(captured, zero, c), 0.0, 1.0) * 255.0
-                t = jnp.floor(x)
-                fr = x - t
-                odd = t - 2.0 * jnp.floor(t * 0.5)
-                up = (fr > 0.5) | ((fr == 0.5) & (odd == 1.0))
-                return (t + up.astype(jnp.float32)).astype(jnp.int32).astype(
-                    jnp.uint32
-                )
-
-        frame_o[:] = (
-            q(r) | (q(g) << 8) | (q(b) << 16) | jnp.uint32(0xFF000000)
-        )
-
-    def kernel(params, px_o, py_o, pz_o, vx_o, vy_o, vz_o, status_o, steps_o, st_ref):
-        gi = pl.program_id(0)
-        gj = pl.program_id(1)
-
-        cam = (params[_P_CAM], params[_P_CAM + 1], params[_P_CAM + 2])
-        fwd = (params[_P_FWD], params[_P_FWD + 1], params[_P_FWD + 2])
-        right = (params[_P_RIGHT], params[_P_RIGHT + 1], params[_P_RIGHT + 2])
-        up = (params[_P_UP], params[_P_UP + 1], params[_P_UP + 2])
-        bh = (params[_P_BH], params[_P_BH + 1], params[_P_BH + 2])
-        rs = params[_P_RS]
-        fov_factor = params[_P_FOVF]
-        spin = params[_P_SPIN]
-        base_dt = params[_P_DT]
-        escape_r = params[_P_ESC]
-        capture_r = params[_P_CAP]
-        r_isco = params[_P_RISCO]
-        r_outer = params[_P_ROUTER]
-        wf = params[_P_WF]
-        hf = params[_P_HF]
-        aspect = params[_P_ASPECT]
-        row0 = params[_P_ROW0].astype(jnp.int32)
-        col0 = params[_P_COL0].astype(jnp.int32)
-
-        rows = jax.lax.broadcasted_iota(jnp.int32, (th, tw), 0) + gi * th + row0
-        cols = jax.lax.broadcasted_iota(jnp.int32, (th, tw), 1) + gj * tw + col0
-        pxf = cols.astype(jnp.float32)
-        pyf = rows.astype(jnp.float32)
-
-        # ray-gen (wgsl:183-198): pixel-index UVs, Y flip, aspect, fov
-        u = (pxf / wf - 0.5) * 2.0 * aspect
-        v = (pyf / hf - 0.5) * -2.0
-        uf = u * fov_factor
-        vf = v * fov_factor
-        d = (
-            fwd[0] + right[0] * uf + up[0] * vf,
-            fwd[1] + right[1] * uf + up[1] * vf,
-            fwd[2] + right[2] * uf + up[2] * vf,
-        )
-        d = _vnorm(d)
-        # trace_ray entry re-normalizes (wgsl:140) — keep for oracle parity
-        vel0 = _vnorm(d)
-        ones = jnp.ones((th, tw), jnp.float32)
-        pos0 = (cam[0] * ones, cam[1] * ones, cam[2] * ones)
-        # Ray status lives in a VMEM scratch ref, NOT a loop carry: a status
-        # carry that is both compared (producing the masks that gate the
-        # other carries) and mask-updated trips a Mosaic layout-inference
-        # bug ("Invalid relayout: ... replicated in destination but not in
-        # source") on real TPU. Keeping pos/vel/steps as registers and only
-        # status in scratch breaks the cycle with one plane of VMEM traffic.
-        st_ref[:] = jnp.zeros((th, tw), jnp.int32)
-
-        # fused fast path: rel-coordinate carry (bh add deferred to output),
-        # r^2-based termination tests (no sqrt for r), acceleration folded
-        # into two FMA coefficients: v' = b1*v + b2*rel. Terminated rays are
-        # only select-frozen where their state is still consumed (vel;
-        # rel/pos only when the disk needs hit positions) — a captured ray's
-        # runaway NaN rel is never read.
-        use_fused = (
-            fast_math
-            and config.integrator in ("euler", "rk4")
-            and config.model in ("schwarzschild", "flat")
-        )
-        esc2 = escape_r * escape_r
-        cap2 = capture_r * capture_r
-        # always freeze rel: TraceResult.final_pos is documented as the
-        # position at termination; letting captured rays run to NaN would
-        # break that contract (this flavor only serves the debug path, so
-        # the three extra selects are irrelevant)
-        freeze_rel = True
-
-        def fast_deriv(p, v):
-            """d(p,v)/dl = (v, a) with a folded to a2*p - a1*v (fast form).
-
-            one_m is clamped so RK4 substeps that probe just inside the
-            horizon (only about-to-be-captured rays do) stay finite; live
-            rays always have one_m >= 1 - 1/1.05.
-            """
-            rr2 = _vdot(p, p)
-            inv_rr = jax.lax.rsqrt(rr2)
-            rs_inv = rs * inv_rr
-            one_m = jnp.maximum(1.0 - rs_inv, 0.02)
-            factor = rs * pl.reciprocal(2.0 * rr2 * one_m, approx=True)
-            c = _vdot(v, p)
-            a1 = factor * one_m
-            a2 = factor * (1.0 + rs_inv) * c * (inv_rr * inv_rr)
-            return (
-                p[0] * a2 - v[0] * a1,
-                p[1] * a2 - v[1] * a1,
-                p[2] * a2 - v[2] * a1,
-            )
-
-        def fast_rk4(rel, vel, dt):
-            """Classic RK4 with the folded acceleration (4 derivs)."""
-            if config.model == "flat":
-                return _vaxpy(rel, vel, dt), vel
-            half = 0.5 * dt
-            k1v = fast_deriv(rel, vel)
-            p2 = _vaxpy(rel, vel, half)
-            v2 = _vaxpy(vel, k1v, half)
-            k2v = fast_deriv(p2, v2)
-            p3 = _vaxpy(rel, v2, half)
-            v3 = _vaxpy(vel, k2v, half)
-            k3v = fast_deriv(p3, v3)
-            p4 = _vaxpy(rel, v3, dt)
-            v4 = _vaxpy(vel, k3v, dt)
-            k4v = fast_deriv(p4, v4)
-            sixth = dt * (1.0 / 6.0)
-            kp = (
-                vel[0] + 2.0 * (v2[0] + v3[0]) + v4[0],
-                vel[1] + 2.0 * (v2[1] + v3[1]) + v4[1],
-                vel[2] + 2.0 * (v2[2] + v3[2]) + v4[2],
-            )
-            kv = (
-                k1v[0] + 2.0 * (k2v[0] + k3v[0]) + k4v[0],
-                k1v[1] + 2.0 * (k2v[1] + k3v[1]) + k4v[1],
-                k1v[2] + 2.0 * (k2v[2] + k3v[2]) + k4v[2],
-            )
-            return _vaxpy(rel, kp, sixth), _vaxpy(vel, kv, sixth)
-
-        def body_fast(carry):
-            i, relx, rely, relz, velx, vely, velz, steps = carry
-            rel = (relx, rely, relz)
-            vel = (velx, vely, velz)
-            status = st_ref[:]
-            active = status == STATUS_RUNNING
-            r2 = _vdot(rel, rel)
-            if track_steps:
-                steps = steps + active.astype(jnp.int32)
-            escaped = active & (r2 > esc2)
-            captured = active & (~escaped) & (r2 < cap2)
-            stepping = active & (~escaped) & (~captured)
-
-            inv_r = jax.lax.rsqrt(r2)
-            if config.adaptive:
-                r = r2 * inv_r
-                dt = base_dt * jnp.clip((r - rs) * 0.1, 0.01, 1.0)
-            else:
-                dt = base_dt
-            if config.integrator == "rk4":
-                new_rel, nv = fast_rk4(rel, vel, dt)
-            elif config.model == "flat":
-                nv = vel
-                new_rel = _vaxpy(rel, nv, dt)
-            else:
-                c = _vdot(vel, rel)
-                rs_inv_r = rs * inv_r
-                one_m = 1.0 - rs_inv_r
-                factor = rs * pl.reciprocal(2.0 * r2 * one_m, approx=True)
-                b1 = 1.0 - factor * one_m * dt
-                b2 = factor * (1.0 + rs_inv_r) * c * (inv_r * inv_r) * dt
-                nv = (
-                    vel[0] * b1 + rel[0] * b2,
-                    vel[1] * b1 + rel[1] * b2,
-                    vel[2] * b1 + rel[2] * b2,
-                )
-                new_rel = _vaxpy(rel, nv, dt)
-            nv = _vscale(nv, jax.lax.rsqrt(_vdot(nv, nv)))
-
-            if config.disk:
-                oy, ny = rel[1], new_rel[1]
-                crosses = oy * ny < 0.0
-                tt = -oy * pl.reciprocal(
-                    jnp.where(crosses, ny - oy, 1.0), approx=True
-                )
-                hx = rel[0] + tt * (new_rel[0] - rel[0])
-                hz = rel[2] + tt * (new_rel[2] - rel[2])
-                hr2 = hx * hx + hz * hz
-                hit = (
-                    stepping
-                    & crosses
-                    & (hr2 >= r_isco * r_isco)
-                    & (hr2 <= r_outer * r_outer)
-                )
-                zero = jnp.zeros_like(hx)
-                new_rel = _vwhere(hit, (hx, zero, hz), new_rel)
-                status = status + hit.astype(jnp.int32) * STATUS_DISK
-
-            rel = _vwhere(stepping, new_rel, rel) if freeze_rel else new_rel
-            vel = _vwhere(stepping, nv, vel)
-            status = status + escaped.astype(jnp.int32) * STATUS_ESCAPED
-            status = status + captured.astype(jnp.int32) * STATUS_CAPTURED
-            st_ref[:] = status
-            return (i + 1, rel[0], rel[1], rel[2], vel[0], vel[1], vel[2], steps)
-
-        a_spin = spin * rs * 0.5  # a = a* M (exact Kerr)
-
-        def body(carry):
-            if use_fused:
-                return body_fast(carry)
-            i, posx, posy, posz, velx, vely, velz, steps = carry
-            pos = (posx, posy, posz)
-            vel = (velx, vely, velz)
-            status = st_ref[:]
-            active = status == STATUS_RUNNING
-            rel = (pos[0] - bh[0], pos[1] - bh[1], pos[2] - bh[2])
-            r2 = _vdot(rel, rel)
-            r = jnp.sqrt(r2)
-            if is_ks:
-                # capture lives at r_+ in the KS radial coordinate
-                r_cap = jnp.sqrt(ks_r2(rel, a_spin * a_spin)[0])
-            else:
-                r_cap = r
-            # steps_taken = i+1 while active == "+1 per entered iteration";
-            # written as vector arithmetic (scalar-operand selects also trip
-            # the Mosaic relayout bug)
-            if track_steps:
-                steps = steps + active.astype(jnp.int32)
-            escaped = active & (r > escape_r)
-            captured = active & (~escaped) & (r_cap < capture_r)
-            stepping = active & (~escaped) & (~captured)
-
-            if config.adaptive:
-                dt = base_dt * jnp.clip((r_cap - rs) * 0.1, 0.01, 1.0)
-            else:
-                dt = base_dt
-            if is_ks:
-                # Hamiltonian step on (q, p); the vel slots carry p — no
-                # renormalization (|p| is not conserved, E = -p_t is)
-                if config.integrator == "rk4":
-                    new_rel, new_vel_n = ks_rk4(rel, vel, dt, rs, a_spin)
-                elif config.integrator == "leapfrog":
-                    new_rel, new_vel_n = ks_leapfrog(rel, vel, dt, rs, a_spin)
-                else:
-                    new_rel, new_vel_n = ks_substep(rel, vel, dt, rs, a_spin)
-            else:
-                new_rel, new_vel = step_fn(rel, vel, r, r2, rs, spin, dt)
-                new_vel_n = _vnorm(new_vel)
-            new_pos = _vadd(new_rel, bh)
-
-            if config.disk:
-                # equatorial y=0 crossing within the annulus (ROADMAP.md:293-313)
-                oy, ny = rel[1], new_rel[1]
-                crosses = oy * ny < 0.0
-                tden = jnp.where(crosses, ny - oy, 1.0)
-                tt = -oy / tden
-                hx = rel[0] + tt * (new_rel[0] - rel[0])
-                hz = rel[2] + tt * (new_rel[2] - rel[2])
-                hr = jnp.sqrt(hx * hx + hz * hz)
-                hit = stepping & crosses & (hr >= r_isco) & (hr <= r_outer)
-                zero = jnp.zeros_like(hx)
-                hit_pos = (hx + bh[0], zero + bh[1], hz + bh[2])
-                new_pos = _vwhere(hit, hit_pos, new_pos)
-                status = status + hit.astype(jnp.int32) * STATUS_DISK
-
-            pos = _vwhere(stepping, new_pos, pos)
-            vel = _vwhere(stepping, new_vel_n, vel)
-            # disjoint masks over status==0 rays -> plain adds
-            status = status + escaped.astype(jnp.int32) * STATUS_ESCAPED
-            status = status + captured.astype(jnp.int32) * STATUS_CAPTURED
-            st_ref[:] = status
-            return (i + 1, pos[0], pos[1], pos[2], vel[0], vel[1], vel[2], steps)
-
-        if use_fused:
-            state0 = (pos0[0] - bh[0], pos0[1] - bh[1], pos0[2] - bh[2])
-        else:
-            state0 = pos0
-        if is_ks:
-            vel0 = ks_init_p(
-                (cam[0] - bh[0], cam[1] - bh[1], cam[2] - bh[2]),
-                vel0, rs, a_spin,
-            )
-        init = (
-            jnp.int32(0),
-            state0[0], state0[1], state0[2],
-            vel0[0], vel0[1], vel0[2],
-            jnp.zeros((th, tw), jnp.int32),
-        )
-        if early_exit_every == 1:
-            def cond(carry):
-                return jnp.logical_and(
-                    carry[0] < max_steps, jnp.any(st_ref[:] == STATUS_RUNNING)
-                )
-
-            carry = jax.lax.while_loop(cond, body, init)
-        elif early_exit_every == 0:
-            carry = jax.lax.fori_loop(
-                0, max_steps, lambda k, c: body(c), init, unroll=unroll
-            )
-        else:
-            # outer while checks early exit; inner fixed-ish fori amortizes
-            # the cross-lane any() reduction over early_exit_every steps
-            def outer_cond(carry):
-                return jnp.logical_and(
-                    carry[0] < max_steps, jnp.any(st_ref[:] == STATUS_RUNNING)
-                )
-
-            if max_steps % early_exit_every == 0:
-                # static inner trip count -> unrollable
-                def outer_body(carry):
-                    return jax.lax.fori_loop(
-                        0, early_exit_every, lambda k, c: body(c), carry,
-                        unroll=unroll,
-                    )
-            else:
-                def outer_body(carry):
-                    n_this = jnp.minimum(
-                        jnp.int32(early_exit_every), max_steps - carry[0]
-                    )
-                    return jax.lax.fori_loop(0, n_this, lambda k, c: body(c), carry)
-
-            carry = jax.lax.while_loop(outer_cond, outer_body, init)
-        _, posx, posy, posz, velx, vely, velz, steps = carry
-        if use_fused:  # fused path carries rel; shift back to absolute
-            posx, posy, posz = posx + bh[0], posy + bh[1], posz + bh[2]
-        if is_ks:
-            # the carried p (frozen at termination) -> shading direction
-            relf = (posx - bh[0], posy - bh[1], posz - bh[2])
-            velx, vely, velz = ks_direction(relf, (velx, vely, velz), rs, a_spin)
-        px_o[:] = posx
-        py_o[:] = posy
-        pz_o[:] = posz
-        vx_o[:] = velx
-        vy_o[:] = vely
-        vz_o[:] = velz
-        status_o[:] = st_ref[:]
-        steps_o[:] = steps
-
-    if masked and (shade_inline or not use_stateless):
-        raise ValueError("masked ray-gen requires the plain stateless kernel")
-    if strided and not use_stateless:
-        raise ValueError("strided ray-gen requires a stateless kernel flavor")
-    if shade_inline:
-        if not use_stateless:
-            raise ValueError("shade_inline requires the stateless fast path")
-        if config.disk and not fast_math:
-            # the exact tier's disk parity contract lives in the staged LUT
-            # epilogue; only the fast tier shades the disk in-kernel
-            raise ValueError("shade_inline disk requires fast_math")
-        return kernel_monolithic, False
-    if use_stateless:
-        return kernel_stateless, False  # (kernel_fn, needs_status_scratch)
-    return kernel, True
-
-
-def build_params(camera, scene, config: TraceConfig, row0=0, col0=0,
-                 stride=1) -> jnp.ndarray:
-    """Pack camera/scene dynamics into the fp32 SMEM params vector.
-
-    `row0`/`col0` offset the in-kernel ray-gen for row/column-band sharding
-    across a device mesh (parallel/mesh.py); UVs always reference the full
+def build_params(camera, scene, config: TraceConfig, row0=0):
+    """Pack camera/scene dynamics into the fp32[32] params vector.
+
+    `row0` offsets the in-kernel ray-gen for row-band sharding
+    (parallel/mesh.py) and the multires halo; UVs always reference the full
     image dimensions from `scene`.
     """
-    from ..ops.geodesic import model_capture_radius
-    from ..core.scene import CAPTURE_FACTOR
+    from .geodesic import model_capture_radius
 
     rs = jnp.asarray(scene.schwarzschild_radius, jnp.float32)
     spin = jnp.asarray(scene.spin, jnp.float32)
@@ -1684,257 +117,454 @@ def build_params(camera, scene, config: TraceConfig, row0=0, col0=0,
     elif config.model == "custom":
         capture_r = rs * jnp.float32(config.custom_capture_factor)
     else:
-        capture_r = jnp.asarray(model_capture_radius(config.model, rs, spin), jnp.float32)
-    w = scene.screen_width
-    h = scene.screen_height
+        capture_r = model_capture_radius(config.model, rs, spin)
+    w = jnp.float32(scene.screen_width)
+    h = jnp.float32(scene.screen_height)
     vals = [
-        camera.position[0], camera.position[1], camera.position[2],
-        camera.forward[0], camera.forward[1], camera.forward[2],
-        camera.right[0], camera.right[1], camera.right[2],
-        camera.up[0], camera.up[1], camera.up[2],
-        scene.black_hole_position[0], scene.black_hole_position[1],
-        scene.black_hole_position[2],
+        *(camera.position[k] for k in range(3)),
+        *(camera.forward[k] for k in range(3)),
+        *(camera.right[k] for k in range(3)),
+        *(camera.up[k] for k in range(3)),
+        *(jnp.asarray(scene.black_hole_position, jnp.float32)[k] for k in range(3)),
         rs,
         jnp.tan(jnp.asarray(scene.fov, jnp.float32) * 0.5),
         spin,
-        jnp.float32(config.dt),
-        jnp.float32(config.escape_radius),
         capture_r,
-        jnp.float32(config.disk_r_isco_factor) * rs,
-        jnp.float32(config.disk_r_outer_factor) * rs,
-        jnp.float32(w),
-        jnp.float32(h),
-        jnp.float32(w) / jnp.float32(h),
-        jnp.asarray(row0, jnp.float32),
-        jnp.asarray(col0, jnp.float32),
-        jnp.asarray(stride, jnp.float32),
-        jnp.float32(_DISK_T_ISCO),
+        w,
+        h,
+        w / h,
+        row0,
     ]
+    vals = [jnp.asarray(v, jnp.float32) for v in vals]
     vals += [jnp.float32(0.0)] * (_P_SIZE - len(vals))
-    return jnp.stack([jnp.asarray(x, jnp.float32) for x in vals])
+    return jnp.stack(vals)
 
 
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
+# ---- tuple-vec3 helpers over (block,) planes -------------------------------
 
 
-# in-kernel blackbody LUT resolution: the locus is smooth, so 128 linear
-# segments track the staged 512-entry LUT to well under a u8 level
-_DISK_KERNEL_LUT_STEPS = 128
+def _vdot(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
 
 
-@functools.lru_cache(maxsize=2)
-def _disk_lut_smem_np():
-    """Channel-major fp32[3 * N] blackbody LUT for the in-kernel scalar-lerp
-    (see _lut_scalar_lerp). Pure numpy so the cache holds no tracers."""
-    import numpy as np
-
-    from ..models.disk import blackbody_lut_np
-
-    lut = blackbody_lut_np(steps=_DISK_KERNEL_LUT_STEPS)  # (N, 3)
-    return np.ascontiguousarray(lut.T.reshape(-1)).astype(np.float32)
+def _vaxpy(a, b, s):  # a + b * s
+    return (a[0] + b[0] * s, a[1] + b[1] * s, a[2] + b[2] * s)
 
 
-def _disk_lut_smem() -> jnp.ndarray:
-    return jnp.asarray(_disk_lut_smem_np())
+def _vwhere(m, a, b):
+    return tuple(jnp.where(m, x, y) for x, y in zip(a, b))
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("width", "height", "max_steps", "config", "tile", "fast_math", "interpret", "early_exit_every", "track_steps", "unroll", "steps_per_check", "linear", "strided"),
-)
-def _pallas_trace(
-    params,
-    *,
-    width: int,
-    height: int,
-    max_steps: int,
-    config: TraceConfig,
-    tile,
-    fast_math: bool,
-    interpret: bool,
-    early_exit_every: int = 1,
-    track_steps: bool = True,
-    unroll: int = 1,
-    steps_per_check: int = 1,
-    linear: bool = False,
-    mask=None,
-    strided: bool = False,
-):
-    th, tw = tile
-    stateless = _use_stateless(config, track_steps, fast_math)
-    linear = linear and stateless and mask is None and not strided
-    if height * width >= (1 << 24):
-        linear = False  # the fp32 pixel-id decode is only exact below 2^24
-    kernel, needs_scratch = build_kernel(
-        config, max_steps, tile, fast_math, early_exit_every, track_steps,
-        unroll, steps_per_check, linear=linear, native_ops=not interpret,
-        masked=mask is not None, strided=strided,
+def _vnorm(v):
+    s = jnp.sqrt(_vdot(v, v))
+    return (v[0] / s, v[1] / s, v[2] / s)
+
+
+def _vnorm_rsqrt(v):
+    """v * rsqrt(v.v): the fast_math tier of the in-loop renormalization
+    (approximate on the GPU; within the oracle parity contract)."""
+    s = lax.rsqrt(_vdot(v, v))
+    return (v[0] * s, v[1] * s, v[2] * s)
+
+
+# ---- physics on component planes (mirrors the oracle's modules) -------------
+
+
+def _accel_fn(config: TraceConfig):
+    """accel(rel, vel, r, rs, spin) on planes for the acceleration models.
+
+    Mirrors models/schwarzschild.acceleration (wgsl:69-79), models/kerr
+    (Lense-Thirring drag, spin axis +Y) and models/flat; model="custom"
+    calls the user plug-in (TraceConfig.custom_accel) on the same planes.
+    """
+    if config.model == "custom":
+        plug = config.custom_accel
+        return lambda rel, vel, r, rs, spin: plug(rel, vel, r, r * r, rs, spin)
+    if config.model == "flat":
+        return lambda rel, vel, r, rs, spin: tuple(jnp.zeros_like(c) for c in vel)
+
+    def schwarzschild(rel, vel, r, rs, spin):
+        r_vec = (rel[0] / r, rel[1] / r, rel[2] / r)
+        v_rad = _vdot(vel, r_vec)
+        rs_over_r = rs / r
+        factor = rs / (2.0 * r * r * (1.0 - rs_over_r))
+        one_m = 1.0 - rs_over_r
+        one_p = 1.0 + rs_over_r
+        return tuple(
+            -factor * (vel[k] * one_m - r_vec[k] * v_rad * one_p) for k in range(3)
+        )
+
+    if config.model == "schwarzschild":
+        return schwarzschild
+
+    def kerr_lt(rel, vel, r, rs, spin):
+        ax, ay, az = schwarzschild(rel, vel, r, rs, spin)
+        m = rs * 0.5
+        j = spin * m * m
+        r_hat = (rel[0] / r, rel[1] / r, rel[2] / r)
+        jr3 = j / (r * r * r)
+        jdotr = r_hat[1]
+        bg = (
+            jr3 * (3.0 * jdotr * r_hat[0]),
+            jr3 * (3.0 * jdotr * r_hat[1] - 1.0),
+            jr3 * (3.0 * jdotr * r_hat[2]),
+        )
+        return (
+            ax + (vel[1] * bg[2] - vel[2] * bg[1]),
+            ay + (vel[2] * bg[0] - vel[0] * bg[2]),
+            az + (vel[0] * bg[1] - vel[1] * bg[0]),
+        )
+
+    if config.model == "kerr_lt":
+        return kerr_lt
+    raise ValueError(f"no plane acceleration for model {config.model!r}")
+
+
+def _step_fn(integrator: str, accel):
+    """(rel, vel, r, rs, spin, dt) -> (rel', vel') — ops/geodesic.STEP_FNS."""
+
+    def guarded_r(p, rs):
+        return jnp.maximum(jnp.sqrt(_vdot(p, p)), 1.0001 * jnp.maximum(rs, 1e-6))
+
+    def euler(rel, vel, r, rs, spin, dt):
+        a = accel(rel, vel, r, rs, spin)
+        nv = _vaxpy(vel, a, dt)
+        return _vaxpy(rel, nv, dt), nv
+
+    def rk4(rel, vel, r, rs, spin, dt):
+        def deriv(p, v):
+            return v, accel(p, v, guarded_r(p, rs), rs, spin)
+
+        half = 0.5 * dt
+        k1p, k1v = deriv(rel, vel)
+        k2p, k2v = deriv(_vaxpy(rel, k1p, half), _vaxpy(vel, k1v, half))
+        k3p, k3v = deriv(_vaxpy(rel, k2p, half), _vaxpy(vel, k2v, half))
+        k4p, k4v = deriv(_vaxpy(rel, k3p, dt), _vaxpy(vel, k3v, dt))
+        sixth = dt * (1.0 / 6.0)
+
+        def comb(k1, k2, k3, k4):
+            return tuple(k1[k] + 2.0 * k2[k] + 2.0 * k3[k] + k4[k] for k in range(3))
+
+        return (
+            _vaxpy(rel, comb(k1p, k2p, k3p, k4p), sixth),
+            _vaxpy(vel, comb(k1v, k2v, k3v, k4v), sixth),
+        )
+
+    def leapfrog(rel, vel, r, rs, spin, dt):
+        half = 0.5 * dt
+        vh = _vaxpy(vel, accel(rel, vel, r, rs, spin), half)
+        new_rel = _vaxpy(rel, vh, dt)
+        rr = guarded_r(new_rel, rs)
+        vp = _vaxpy(vh, accel(new_rel, vh, rr, rs, spin), half)
+        return new_rel, _vaxpy(vh, accel(new_rel, vp, rr, rs, spin), half)
+
+    return {"euler": euler, "rk4": rk4, "leapfrog": leapfrog}[integrator]
+
+
+_KS_EPS = 1e-12
+
+
+def _ks_r2(q, a2):
+    """Kerr-Schild radial coordinate squared (models/kerr_schild.ks_radius)."""
+    x, y, z = q
+    b = (x * x + y * y + z * z) - a2
+    disc = jnp.sqrt(b * b + 4.0 * a2 * (y * y))
+    return jnp.maximum(0.5 * (b + disc), _KS_EPS)
+
+
+def _ks_derivs(q, p, rs, a):
+    """Plane transcription of models/kerr_schild.derivs (same expression
+    trees: the flow is chaotic at the shadow edge, so regroupings show)."""
+    m = rs * 0.5
+    a2 = a * a
+    x, y, z = q
+    px, py, pz = p
+    r2 = _ks_r2(q, a2)
+    r = jnp.sqrt(r2)
+    y2 = y * y
+    w = r2 * r2 + a2 * y2
+    inv_w = 1.0 / w
+    r3 = r2 * r
+    f = (2.0 * m) * r3 * inv_w
+    bb = r2 + a2
+    inv_bb = 1.0 / bb
+    lx = (r * x + a * z) * inv_bb
+    inv_r = 1.0 / r
+    ly = y * inv_r
+    lz = (r * z - a * x) * inv_bb
+    r_w = r * inv_w
+    drx = r_w * r2 * x
+    dry = r_w * bb * y
+    drz = r_w * r2 * z
+    g1 = (2.0 * m) * (3.0 * r2 * w - 4.0 * r3 * r3) * (inv_w * inv_w)
+    g2 = (4.0 * m) * a2 * r3 * (inv_w * inv_w)
+    dfx = g1 * drx
+    dfy = g1 * dry - g2 * y
+    dfz = g1 * drz
+    two_r_invbb = 2.0 * r * inv_bb
+    inv_r2 = inv_r * inv_r
+    dlx_x = (x * drx + r) * inv_bb - lx * (two_r_invbb * drx)
+    dlx_y = (x * dry) * inv_bb - lx * (two_r_invbb * dry)
+    dlx_z = (x * drz + a) * inv_bb - lx * (two_r_invbb * drz)
+    dly_x = -y * inv_r2 * drx
+    dly_y = inv_r - y * inv_r2 * dry
+    dly_z = -y * inv_r2 * drz
+    dlz_x = (z * drx - a) * inv_bb - lz * (two_r_invbb * drx)
+    dlz_y = (z * dry) * inv_bb - lz * (two_r_invbb * dry)
+    dlz_z = (z * drz + r) * inv_bb - lz * (two_r_invbb * drz)
+    s = 1.0 + lx * px + ly * py + lz * pz
+    fs = f * s
+    dq = (px - fs * lx, py - fs * ly, pz - fs * lz)
+    hs2 = 0.5 * s * s
+    dp = (
+        hs2 * dfx + fs * (dlx_x * px + dly_x * py + dlz_x * pz),
+        hs2 * dfy + fs * (dlx_y * px + dly_y * py + dlz_y * pz),
+        hs2 * dfz + fs * (dlx_z * px + dly_z * py + dlz_z * pz),
     )
-    if linear:
-        n_pix = height * width
-        n_tiles = -(-n_pix // (th * tw))
-        hp, wp = n_tiles * th, tw
-        grid = (n_tiles, 1)
+    return dq, dp
+
+
+def _ks_step_fn(integrator: str):
+    """(q, p, rs, a, dt) -> (q', p') — ops/trace._trace_rays_kerr_schild."""
+
+    def euler(q, p, rs, a, dt):
+        _, dp = _ks_derivs(q, p, rs, a)
+        p2 = _vaxpy(p, dp, dt)
+        dq2, _ = _ks_derivs(q, p2, rs, a)
+        return _vaxpy(q, dq2, dt), p2
+
+    def rk4(q, p, rs, a, dt):
+        half = 0.5 * dt
+        k1q, k1p = _ks_derivs(q, p, rs, a)
+        k2q, k2p = _ks_derivs(_vaxpy(q, k1q, half), _vaxpy(p, k1p, half), rs, a)
+        k3q, k3p = _ks_derivs(_vaxpy(q, k2q, half), _vaxpy(p, k2p, half), rs, a)
+        k4q, k4p = _ks_derivs(_vaxpy(q, k3q, dt), _vaxpy(p, k3p, dt), rs, a)
+        sixth = dt * (1.0 / 6.0)
+
+        def comb(k1, k2, k3, k4):
+            return tuple(k1[k] + 2.0 * k2[k] + 2.0 * k3[k] + k4[k] for k in range(3))
+
+        return (
+            _vaxpy(q, comb(k1q, k2q, k3q, k4q), sixth),
+            _vaxpy(p, comb(k1p, k2p, k3p, k4p), sixth),
+        )
+
+    def leapfrog(q, p, rs, a, dt):
+        half = 0.5 * dt
+        _, dp1 = _ks_derivs(q, p, rs, a)
+        ph = _vaxpy(p, dp1, half)
+        dq_a, _ = _ks_derivs(q, ph, rs, a)
+        q_mid = _vaxpy(q, dq_a, half)
+        dq_b, _ = _ks_derivs(q_mid, ph, rs, a)
+        q2 = _vaxpy(q, dq_b, dt)
+        _, dp2a = _ks_derivs(q2, ph, rs, a)
+        p_pred = _vaxpy(ph, dp2a, half)
+        _, dp2 = _ks_derivs(q2, p_pred, rs, a)
+        return q2, _vaxpy(ph, dp2, half)
+
+    return {"euler": euler, "rk4": rk4, "leapfrog": leapfrog}[integrator]
+
+
+def _ks_init_momentum(q, d, rs, a):
+    """Plane transcription of models/kerr_schild.init_momentum."""
+    a2 = a * a
+    x, y, z = q
+    r2 = _ks_r2(q, a2)
+    r = jnp.sqrt(r2)
+    w = r2 * r2 + a2 * y * y
+    f = rs * r2 * r / w
+    bb = r2 + a2
+    lx = (r * x + a * z) / bb
+    ly = y / r
+    lz = (r * z - a * x) / bb
+    c = lx * d[0] + ly * d[1] + lz * d[2]
+    disc = jnp.sqrt(jnp.maximum(1.0 - f * (1.0 - c * c), _KS_EPS))
+    ut = (f * c + disc) / jnp.maximum(1.0 - f, 1e-6)
+    fl = f * (ut + c)
+    e_inv = 1.0 / jnp.maximum(ut - fl, _KS_EPS)
+    return tuple((d[k] + fl * l) * e_inv for k, l in enumerate((lx, ly, lz)))
+
+
+def _ks_direction(q, p, rs, a):
+    """models/kerr_schild.final_direction on planes."""
+    dq, _ = _ks_derivs(q, p, rs, a)
+    n = jnp.sqrt(jnp.maximum(_vdot(dq, dq), _KS_EPS))
+    return (dq[0] / n, dq[1] / n, dq[2] / n)
+
+
+# ---- the kernel -------------------------------------------------------------
+
+
+def _make_kernel(config: TraceConfig, max_steps: int, block: int,
+                 local_w: int, n_pix: int, stride: int, masked: bool):
+    """Kernel body for one static configuration (see module docstring)."""
+    is_ks = config.model == "kerr"
+    if is_ks:
+        ks_step = _ks_step_fn(config.integrator)
     else:
-        hp = _round_up(height, th)
-        wp = _round_up(width, tw)
-        grid = (hp // th, wp // tw)
-    f32 = jax.ShapeDtypeStruct((hp, wp), jnp.float32)
-    i32 = jax.ShapeDtypeStruct((hp, wp), jnp.int32)
-    block = pl.BlockSpec((th, tw), lambda i, j: (i, j), memory_space=pltpu.VMEM)
-    # ~55 flops + 2 rsqrt-class ops per ray-step (Euler); RK4 is ~4x
-    step_cost = 55 if config.integrator == "euler" else 220
-    cost = pl.CostEstimate(
-        flops=hp * wp * max_steps * step_cost,
-        bytes_accessed=hp * wp * 4 * 8,
-        transcendentals=hp * wp * max_steps * 2,
-    )
-    in_specs = [pl.BlockSpec(memory_space=pltpu.SMEM)]
-    operands = [params]
-    if mask is not None:
-        mask = jnp.asarray(mask, jnp.float32)
-        mask = jnp.pad(mask, ((0, hp - height), (0, wp - width)))
-        in_specs.append(block)
-        operands.append(mask)
-    outs = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=[block] * 8,
-        out_shape=[f32] * 6 + [i32] * 2,
-        scratch_shapes=[pltpu.VMEM((th, tw), jnp.int32)] if needs_scratch else [],
-        cost_estimate=cost,
-        interpret=interpret,
-    )(*operands)
-    if linear:
-        outs = [o.reshape(-1)[: height * width].reshape(height, width) for o in outs]
-        posx, posy, posz, velx, vely, velz, status, steps = outs
-    else:
-        posx, posy, posz, velx, vely, velz, status, steps = [
-            o[:height, :width] for o in outs
-        ]
-    final_pos = jnp.stack([posx, posy, posz], axis=-1)
-    final_vel = jnp.stack([velx, vely, velz], axis=-1)
-    return TraceResult(
-        final_pos=final_pos, final_vel=final_vel, status=status, steps=steps
-    )
+        step = _step_fn(config.integrator, _accel_fn(config))
+        renorm = _vnorm_rsqrt if config.fast_math else _vnorm
+
+    def kernel(params_ref, *refs):
+        if masked:
+            mask_ref, *outs = refs
+        else:
+            mask_ref, outs = None, refs
+        px_o, py_o, pz_o, vx_o, vy_o, vz_o, status_o, steps_o = outs
+
+        def prm(k):
+            return params_ref[k]
+
+        cam = tuple(prm(_P_CAM + k) for k in range(3))
+        fwd = tuple(prm(_P_FWD + k) for k in range(3))
+        right = tuple(prm(_P_RIGHT + k) for k in range(3))
+        up = tuple(prm(_P_UP + k) for k in range(3))
+        bh = tuple(prm(_P_BH + k) for k in range(3))
+        rs = prm(_P_RS)
+        spin = prm(_P_SPIN)
+        fov_factor = prm(_P_FOVF)
+        capture_r = prm(_P_CAP)
+        r_isco = config.disk_r_isco_factor * rs
+        r_outer = config.disk_r_outer_factor * rs
+
+        # ray-gen from the flat local pixel id (wgsl:183-198): pixel-index
+        # UVs, Y flip, aspect, fov — the operation order of
+        # core.camera.generate_rays
+        pid = pl.program_id(0) * block + lax.broadcasted_iota(jnp.int32, (block,), 0)
+        row = lax.div(pid, local_w)
+        col = pid - row * local_w
+        rows_f = (row * stride).astype(jnp.float32) + prm(_P_ROW0)
+        cols_f = (col * stride).astype(jnp.float32)
+        u = (cols_f / prm(_P_WF) - 0.5) * 2.0
+        v = (rows_f / prm(_P_HF) - 0.5) * -2.0
+        uf = (u * prm(_P_ASPECT)) * fov_factor
+        vf = v * fov_factor
+        d = tuple(fwd[k] + right[k] * uf + up[k] * vf for k in range(3))
+        vel0 = _vnorm(_vnorm(d))  # generate_rays, then trace_rays' wgsl:140
+
+        # padding rays and masked-off rays (multires fix-up) start finished:
+        # they never hold their block in the loop
+        live0 = pid < n_pix
+        if masked:
+            live0 = live0 & (mask_ref[...] > 0.0)
+        status0 = jnp.where(live0, STATUS_RUNNING, STATUS_ESCAPED).astype(jnp.int32)
+        zeros_i = jnp.zeros((block,), jnp.int32)
+        zeros_f = jnp.zeros((block,), jnp.float32)
+        rel0 = tuple(zeros_f + (cam[k] - bh[k]) for k in range(3))
+        if is_ks:
+            a_spin = spin * (rs * 0.5)
+            vel0 = _ks_init_momentum(rel0, vel0, rs, a_spin)
+
+        def cond(carry):
+            i, status = carry[0], carry[7]
+            running = jnp.max((status == STATUS_RUNNING).astype(jnp.int32))
+            return jnp.logical_and(i < max_steps, running > 0)
+
+        def body(carry):
+            i, rx, ry, rz, vx, vy, vz, status, steps = carry
+            rel, vel = (rx, ry, rz), (vx, vy, vz)
+            active = status == STATUS_RUNNING
+            dist = jnp.sqrt(_vdot(rel, rel))
+            steps = jnp.where(active, i + 1, steps)
+            if is_ks:
+                r_test = jnp.sqrt(_ks_r2(rel, a_spin * a_spin))
+            else:
+                r_test = dist
+            escaped = active & (dist > config.escape_radius)
+            captured = active & ~escaped & (r_test < capture_r)
+            stepping = active & ~escaped & ~captured
+            if config.adaptive:
+                dt = config.dt * jnp.clip((r_test - rs) * 0.1, 0.01, 1.0)
+            else:
+                dt = jnp.float32(config.dt)
+            if is_ks:
+                new_rel, new_vel = ks_step(rel, vel, rs, a_spin, dt)
+            else:
+                new_rel, new_vel = step(rel, vel, dist, rs, spin, dt)
+                new_vel = renorm(new_vel)
+            if config.disk:
+                # models/disk.intersect_equatorial on planes
+                oy, ny = rel[1], new_rel[1]
+                crosses = oy * ny < 0.0
+                t = -oy / jnp.where(crosses, ny - oy, 1.0)
+                hit_rel = tuple(rel[k] + t * (new_rel[k] - rel[k]) for k in range(3))
+                hr = jnp.sqrt(_vdot(hit_rel, hit_rel))
+                hit = crosses & (hr >= r_isco) & (hr <= r_outer) & stepping
+                new_rel = _vwhere(hit, hit_rel, new_rel)
+                status = jnp.where(hit, STATUS_DISK, status)
+            rel = _vwhere(stepping, new_rel, rel)
+            vel = _vwhere(stepping, new_vel, vel)
+            status = jnp.where(escaped, STATUS_ESCAPED, status)
+            status = jnp.where(captured, STATUS_CAPTURED, status)
+            return (i + 1, *rel, *vel, status, steps)
+
+        init = (jnp.int32(0), *rel0, *vel0, status0, zeros_i)
+        _, rx, ry, rz, vx, vy, vz, status, steps = lax.while_loop(cond, body, init)
+        rel, vel = (rx, ry, rz), (vx, vy, vz)
+        if is_ks:
+            # q, p froze at termination: this is the at-termination direction
+            vel = _ks_direction(rel, vel, rs, a_spin)
+        px_o[...] = rel[0] + bh[0]
+        py_o[...] = rel[1] + bh[1]
+        pz_o[...] = rel[2] + bh[2]
+        vx_o[...] = vel[0]
+        vy_o[...] = vel[1]
+        vz_o[...] = vel[2]
+        status_o[...] = status
+        steps_o[...] = steps
+
+    return kernel
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "width", "height", "max_steps", "config", "tile", "early_exit_every",
-        "unroll", "steps_per_check", "seed", "interpret", "linear",
-        "fast_math",
+        "local_shape", "max_steps", "config", "block", "num_warps", "stride",
     ),
 )
-def _pallas_render_mono(
-    params,
-    *,
-    width: int,
-    height: int,
-    max_steps: int,
-    config: TraceConfig,
-    tile,
-    early_exit_every: int,
-    unroll: int,
-    steps_per_check: int,
-    seed: int,
-    interpret: bool,
-    linear: bool = False,
-    fast_math: bool = True,
-):
-    th, tw = tile
-    if height * width >= (1 << 24):
-        linear = False  # the fp32 pixel-id decode is only exact below 2^24
-    kernel, _ = build_kernel(
-        config, max_steps, tile, fast_math, early_exit_every, False,
-        unroll, steps_per_check, shade_inline=True, shade_seed=seed,
-        linear=linear, native_ops=not interpret,
-    )
-    if linear:
-        n_pix = height * width
-        n_tiles = -(-n_pix // (th * tw))
-        hp, wp = n_tiles * th, tw
-        grid = (n_tiles, 1)
-    else:
-        hp = _round_up(height, th)
-        wp = _round_up(width, tw)
-        grid = (hp // th, wp // tw)
-    block = pl.BlockSpec((th, tw), lambda i, j: (i, j), memory_space=pltpu.VMEM)
-    cost = pl.CostEstimate(
-        flops=hp * wp * max_steps * 40,
-        bytes_accessed=hp * wp * 4,
-        transcendentals=hp * wp * max_steps * 2,
-    )
-    in_specs = [pl.BlockSpec(memory_space=pltpu.SMEM)]
+def _pallas_trace(params, mask, *, local_shape, max_steps, config, block,
+                  num_warps, stride):
+    height, width = local_shape
+    n_pix = height * width
+    n_pad = -(-n_pix // block) * block
+    masked = mask is not None
+    kernel = _make_kernel(config, max_steps, block, width, n_pix, stride, masked)
+    ray_spec = pl.BlockSpec((block,), lambda i: (i,))
+    in_specs = [pl.BlockSpec((_P_SIZE,), lambda i: (0,))]
     operands = [params]
-    if config.disk:
-        in_specs.append(pl.BlockSpec(memory_space=pltpu.SMEM))
-        operands.append(_disk_lut_smem())
-    out = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=block,
-        out_shape=jax.ShapeDtypeStruct((hp, wp), jnp.uint32),
-        cost_estimate=cost,
-        interpret=interpret,
-    )(*operands)
-    if linear:
-        return out.reshape(-1)[: height * width].reshape(height, width)
-    return out[:height, :width]
+    if masked:
+        flat = jnp.asarray(mask, jnp.float32).reshape(-1)
+        in_specs.append(ray_spec)
+        operands.append(jnp.pad(flat, (0, n_pad - n_pix)))
 
+    def call(*ops, platform):
+        return pl.pallas_call(
+            kernel,
+            grid=(n_pad // block,),
+            in_specs=in_specs,
+            out_specs=[ray_spec] * 8,
+            out_shape=[jax.ShapeDtypeStruct((n_pad,), jnp.float32)] * 6
+            + [jax.ShapeDtypeStruct((n_pad,), jnp.int32)] * 2,
+            compiler_params=plt.CompilerParams(num_warps=num_warps, num_stages=1),
+            backend="triton",
+            interpret=kernel_mode(platform) == KERNEL_INTERPRET,
+            name="geodesic_trace",
+        )(*ops)
 
-def pallas_render_packed(
-    camera,
-    scene,
-    config: TraceConfig = TraceConfig(),
-    *,
-    seed: int = 2020,
-    tile=None,
-    interpret: bool | None = None,
-    early_exit_every: int = DEFAULT_EARLY_EXIT_EVERY,
-    unroll: int = 1,
-    steps_per_check: int = 1,
-    row0=0,
-    col0=0,
-    local_shape: tuple[int, int] | None = None,
-    linear: bool | None = None,
-    fast_math: bool = True,
-):
-    """Monolithic path: trace + analytic shading fused in one Pallas
-    kernel -> packed u32 (H, W) frame. Requires the stateless-kernel
-    conditions (euler/rk4, no step tracking, procedural background,
-    passthrough tonemap; either math tier — the exact tier shades with
-    where-masks and a bit-true round-half-even). config.disk additionally
-    fuses the relativistic disk emission in-kernel (fast tier only,
-    butterfly-LUT blackbody colors, for_scene-derived DiskParams); callers
-    fall back to pallas_trace_image + the XLA epilogue otherwise."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    height, width = local_shape or (scene.screen_height, scene.screen_width)
-    if tile is None:
-        tile = pick_tile(width)
-    # linear (flat-id) ray-gen is opt-in: it changes the compiled program,
-    # which shifts ray-gen by ulps — the autotuner enables it where the
-    # padding win pays (width not divisible by the tile width)
-    params = build_params(camera, scene, config, row0=row0, col0=col0)
-    return _pallas_render_mono(
-        params,
-        width=width,
-        height=height,
-        max_steps=scene.max_steps,
-        config=config,
-        tile=tuple(tile),
-        early_exit_every=early_exit_every,
-        unroll=unroll,
-        steps_per_check=steps_per_check,
-        seed=seed,
-        interpret=interpret,
-        linear=bool(linear),
-        fast_math=fast_math,
+    # only the branch of the platform the call is lowered for is lowered;
+    # any other platform fails to lower
+    outs = lax.platform_dependent(
+        *operands,
+        **{p: functools.partial(call, platform=p) for p in ("cpu", "cuda")},
+    )
+    px, py, pz, vx, vy, vz, status, steps = (
+        o[:n_pix].reshape(height, width) for o in outs
+    )
+    return TraceResult(
+        final_pos=jnp.stack([px, py, pz], axis=-1),
+        final_vel=jnp.stack([vx, vy, vz], axis=-1),
+        status=status,
+        steps=steps,
     )
 
 
@@ -1943,59 +573,36 @@ def pallas_trace_image(
     scene,
     config: TraceConfig = TraceConfig(),
     *,
-    tile=None,
-    fast_math: bool = False,
-    interpret: bool | None = None,
     row0=0,
-    col0=0,
     local_shape: tuple[int, int] | None = None,
-    early_exit_every: int = DEFAULT_EARLY_EXIT_EVERY,
-    track_steps: bool = True,
-    unroll: int = 1,
-    steps_per_check: int = 1,
-    linear: bool | None = None,
     mask=None,
     stride: int = 1,
 ) -> TraceResult:
     """Trace every pixel of the scene's image with the Pallas kernel.
 
-    Rays are generated in-kernel; only the 32-float params vector crosses
-    into the kernel. Returns a TraceResult shaped (H, W) — or
-    `local_shape` when rendering a row/column band of the full image for
-    mesh-sharded rendering (row0/col0 give the band's global origin).
+    Returns a TraceResult shaped (H, W) — or `local_shape` for a band of
+    the full image (row0 gives the band's first global row; mesh-sharded
+    rendering and the multires halo). The kernel is compiled when the call
+    runs on a GPU and interpreted when it runs on the CPU (`kernel_mode` of
+    the lowering platform); nothing else is reachable. DEFAULT_BLOCK rays
+    per program, DEFAULT_NUM_WARPS warps.
 
-    `mask` (stateless flavors, multires edge fix-up): fp32 (H, W) plane;
-    rays with mask 0 freeze at step 0 with a sentinel position (their
-    outputs are meant to be discarded), and tiles whose rays are ALL
-    masked off exit the integration loop before the first step — pair
-    with a non-zero early_exit_every so the skip actually pays.
-
-    `stride` > 1 (with `local_shape`): trace every stride-th pixel of the
-    full image — local pixel (i, j) is FULL-image pixel (i*stride + row0,
-    j*stride + col0). The multires low pass (ops/multires.py); ray-gen
-    UVs always reference the full `scene` dims.
+    `stride` > 1: trace every stride-th pixel of the full image — local
+    pixel (i, j) is full-image pixel (i*stride + row0, j*stride),
+    the multires low pass. `mask` (fp32 (H, W)): rays with mask 0 are not
+    integrated (status ESCAPED, initial state; callers discard them) and a
+    block whose rays are all masked costs no loop trip — the multires
+    edge fix-up.
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    height, width = local_shape or (scene.screen_height, scene.screen_width)
-    if tile is None:
-        tile = pick_tile(width)
-    params = build_params(camera, scene, config, row0=row0, col0=col0,
-                          stride=stride)
+    local_shape = tuple(local_shape or (scene.screen_height, scene.screen_width))
+    params = build_params(camera, scene, config, row0=row0)
     return _pallas_trace(
         params,
-        width=width,
-        height=height,
-        max_steps=scene.max_steps,
+        mask,
+        local_shape=local_shape,
+        max_steps=int(scene.max_steps),
         config=config,
-        tile=tuple(tile),
-        fast_math=fast_math,
-        interpret=interpret,
-        early_exit_every=early_exit_every,
-        track_steps=track_steps,
-        unroll=unroll,
-        steps_per_check=steps_per_check,
-        linear=bool(linear),
-        mask=mask,
-        strided=stride != 1,
+        block=DEFAULT_BLOCK,
+        num_warps=DEFAULT_NUM_WARPS,
+        stride=int(stride),
     )

@@ -2,7 +2,7 @@
 
 For an integer factor the bilinear sample positions of an upsample fall on
 `factor` static phases per axis, so upsampling is shift-and-blend over whole
-planes — pure VPU, no per-pixel indexing. Used by the multi-resolution
+planes — elementwise work, no per-pixel indexing. Used by the multi-resolution
 renderer (ops/multires.py, deflection-field upsample) and the subsampled
 texture sampler (ops/sampling.sample_equirect_packed_subsampled).
 
@@ -67,15 +67,11 @@ def _sel_matrix(n_in: int, stride: int, offset: int = 0):
 
 
 def subsample_mm(plane, stride: int, offset: int = 0):
-    """plane[offset::stride, offset::stride] as two MXU matmuls.
+    """plane[offset::stride, offset::stride] as two one-hot matmuls.
 
-    A strided slice on TPU is a lane/sublane DECIMATION — XLA lowers it at
-    ~10 ns per output element (measured: scripts/sampler_bench.py, as
-    expensive as a gather), because compacting every stride-th lane is a
-    cross-lane shuffle. One-hot selection matmuls run on the otherwise-idle
-    MXU in microseconds and are exact (one term per output row, HIGHEST
-    precision). Expansion (stack+reshape interleave) has no such penalty,
-    so the upsample helpers above stay element-wise.
+    Selection matmuls are exact (one term per output row, HIGHEST
+    precision). Whether they beat a plain strided slice on the GPU is
+    unmeasured (ROADMAP A4).
     """
     h, w = plane.shape
     sr = _sel_matrix(h, stride, offset)

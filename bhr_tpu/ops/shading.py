@@ -74,7 +74,7 @@ def shade_planes_packed(
 ) -> jnp.ndarray:
     """Planar shading epilogue -> packed uint32 RGBA frame.
 
-    The TPU-fast variant of shade(): every intermediate is a well-tiled
+    The production variant of shade(): every intermediate is a well-tiled
     (H, W) component plane (no 3-wide minor dimensions), and the output is
     one packed u32 plane (see sampling.pack_rgba8_planes). `background` is
     a callable (dx, dy, dz) -> (r, g, b) planes — either the analytic star

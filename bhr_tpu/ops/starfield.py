@@ -1,11 +1,9 @@
 """Analytic procedural star field: gather-free skybox evaluation.
 
 The reference samples a 4K equirectangular EXR texture per ray
-(reference: src/ray_tracer_euler.wgsl:101-105). On TPU, arbitrary 2D
-texture gathers are the single slowest operation in the frame (~30 ms per
-gather pass at 1080p — two orders of magnitude more than the entire
-geodesic integration), so the default skybox is evaluated *analytically*:
-a deterministic hash-based star field computed per pixel with pure VPU
+(reference: src/ray_tracer_euler.wgsl:101-105). The default skybox here
+is evaluated *analytically* instead, with no texture gathers: a
+deterministic hash-based star field computed per pixel with elementwise
 arithmetic in the fused shading epilogue. Zero memory traffic, infinite
 resolution, bit-identical between the XLA oracle and Pallas paths (both
 call this same jnp function outside the kernel).
@@ -33,7 +31,7 @@ GRID_H = 256
 
 
 def _hash(x):
-    """lowbias32-style integer hash on uint32 planes (pure VPU)."""
+    """lowbias32-style integer hash on uint32 planes (elementwise)."""
     x = x.astype(jnp.uint32)
     x = x ^ (x >> 16)
     x = x * jnp.uint32(0x7FEB352D)
@@ -46,8 +44,8 @@ def _hash(x):
 def _unit(h):
     """uint32 -> fp32 in [0, 1).
 
-    Goes through the top 24 bits as int32: Mosaic has no uint32->float cast,
-    and 24 bits is exactly representable in fp32 anyway.
+    Goes through the top 24 bits as int32: 24 bits is exactly
+    representable in fp32.
     """
     return (h >> 8).astype(jnp.int32).astype(jnp.float32) * jnp.float32(
         1.0 / 16777216.0
@@ -58,11 +56,9 @@ def procedural_background(dx, dy, dz, seed: int = 2020):
     """Default star field: cube-face hash lattice, transcendental-free.
 
     dx/dy/dz are fp32 (...,) direction components (not necessarily unit);
-    returns (r, g, b) planes in [0, 1]. Built exclusively from ops the
-    Mosaic TPU compiler can lower (rsqrt, floor, int hash, selects — no
-    atan2/asin/sin), so the same function runs in the fused XLA shading
-    epilogue AND inside the Pallas kernel (the monolithic trace+shade
-    path). Star cells live on cube faces (near-uniform solid-angle
+    returns (r, g, b) planes in [0, 1]. Built from rsqrt, floor, an int
+    hash and selects — no atan2/asin/sin — so it stays cheap in the fused
+    XLA shading epilogue. Star cells live on cube faces (near-uniform solid-angle
     density — better than equirect cells, which cluster at the poles).
     """
     n_inv = jax.lax.rsqrt(dx * dx + dy * dy + dz * dz)
@@ -74,7 +70,7 @@ def procedural_background(dx, dy, dz, seed: int = 2020):
     y_major = (~x_major) & (ay >= az)
     z_major = ~(x_major | y_major)
     maj = jnp.where(x_major, ax, jnp.where(y_major, ay, az))
-    inv_maj = pl_reciprocal(maj)
+    inv_maj = 1.0 / maj
     s = jnp.where(x_major, ny, jnp.where(y_major, nz, nx)) * inv_maj
     t = jnp.where(x_major, nz, jnp.where(y_major, nx, ny)) * inv_maj
     axis = jnp.where(x_major, 0, jnp.where(y_major, 1, 2)).astype(jnp.int32)
@@ -124,7 +120,7 @@ def procedural_background(dx, dy, dz, seed: int = 2020):
     # galactic band around the equator; azimuthal wobble via
     # sin(2*az) = 2*nx*nz/(nx^2+nz^2) — no trig
     h2d = nx * nx + nz * nz
-    wobble = 2.0 * nx * nz * pl_reciprocal(jnp.maximum(h2d, 1e-6))
+    wobble = 2.0 * nx * nz / jnp.maximum(h2d, 1e-6)
     tband = (ny - 0.12 * wobble) * (1.0 / 0.11)
     band = 1.0 / (1.0 + tband * tband)
     band = band * band
@@ -138,14 +134,9 @@ def procedural_background(dx, dy, dz, seed: int = 2020):
     return r, g, b
 
 
-def pl_reciprocal(x):
-    """1/x — plain divide (XLA epilogue) or Mosaic-lowerable in-kernel."""
-    return 1.0 / x
-
-
 def procedural_background_equirect(dx, dy, dz, seed: int = 2020):
     """Equirectangular-lattice star field (the original formulation; uses
-    atan2/asin so it only runs in the XLA epilogue, not in-kernel).
+    atan2/asin).
 
     dx/dy/dz are fp32 (...,) direction components (not necessarily unit).
     """

@@ -14,8 +14,8 @@ configuration:
         step;  pos = rel' + bh;  vel = normalize(vel')
 
 Rays that exhaust max_steps also sample the background with their current
-velocity (wgsl:170). The lane-parallel formulation uses masked updates under
-one `lax.while_loop` with a global all-done early exit — the TPU-idiomatic
+velocity (wgsl:170). The vectorized formulation uses masked updates under
+one `lax.while_loop` with a global all-done early exit — the whole-array
 equivalent of per-thread `break` (SURVEY.md section 5, long-context note).
 """
 
@@ -41,7 +41,7 @@ STATUS_DISK = 3  # hit the accretion disk -> disk emission
 class TraceConfig:
     """Static trace configuration (hashable; part of the jit cache key).
 
-    `integrator`/`model` select kernel functions — the TPU-native analog of
+    `integrator`/`model` select kernel functions — the analog of
     the reference's hot-swappable `--shader` flag (reference: src/main.rs:30).
 
     `model="custom"` is the full runtime hot-swap analog (reference:
@@ -54,13 +54,10 @@ class TraceConfig:
     where `rel`/`vel` are 3-tuples of same-shaped fp32 arrays and
     `r`/`r2`/`rs`/`spin` broadcast over them. ONE signature serves both
     execution paths: the XLA oracle wraps its (..., 3) state into plane
-    tuples, and the Pallas kernel calls it directly on its (TH, TW)
+    tuples, and the Pallas kernel calls it directly on its (block,)
     register planes — the plugin is traced into the device kernel, not
     interpreted host-side. Termination keeps the reference semantics with
     `capture_r = custom_capture_factor * rs` (wgsl:62's 1.05 by default).
-    Custom physics runs on the scratch-status kernel (both math tiers);
-    the stateless/monolithic/multires turbo flavors stay reserved for the
-    built-in models whose freeze-guard algebra is verified.
     """
 
     integrator: str = "euler"  # "euler" | "rk4" | "leapfrog"
@@ -74,6 +71,9 @@ class TraceConfig:
     # model="custom" plugin physics (hashed by identity -> jit cache key)
     custom_accel: object = None
     custom_capture_factor: float = float(CAPTURE_FACTOR)
+    # math tier of the Pallas kernel's in-loop renormalization
+    # (ops/pallas_trace.py); the XLA oracle is always exact
+    fast_math: bool = False
 
     def __post_init__(self):
         if self.model == "custom" and self.custom_accel is None:

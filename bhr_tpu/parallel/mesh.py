@@ -1,19 +1,18 @@
-"""Multi-chip rendering over a jax device mesh.
+"""Multi-device rendering over a jax device mesh.
 
 The reference is single-device (SURVEY.md §2.2); its only parallelism is
-SPMD over pixels within one GPU. The TPU-native scaling story:
+SPMD over pixels within one GPU. Across several GPUs:
 
-  * **sp** (spatial / "sequence" axis): the pixel-row dimension of a frame
-    is sharded across devices — each chip ray-traces a horizontal band.
-    Rays are embarrassingly parallel, so the band render needs *zero*
+  * **sp** (spatial axis): the pixel-row dimension of a frame is sharded
+    across devices — each device ray-traces a horizontal band. Rays are
+    embarrassingly parallel, so the band render needs *zero*
     communication; ray-gen takes the band's global row offset.
   * **dp** (data axis): animation frames are batch-sharded across devices;
-    each chip scans its subset of frame times.
+    each device scans its subset of frame times.
 
-Collectives ride ICI only for reductions (the frame-luminance telemetry
-psum below) and any host-side gather of the final sharded image — the hot
-loop itself never communicates, which is the speed-of-light layout for this
-workload.
+Collectives run only for reductions (the frame-luminance telemetry psum
+below, which XLA hands to NCCL) and any host-side gather of the final
+sharded image — the hot loop itself never communicates.
 """
 
 from __future__ import annotations
@@ -25,11 +24,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..core.camera import generate_rays, orbit_camera
-from ..ops.pallas_trace import (
-    monolithic_eligible,
-    pallas_render_packed,
-    pallas_trace_image,
-)
+from ..ops.pallas_trace import KERNEL_COMPILED, kernel_mode, pallas_trace_image
 from ..ops.sampling import sample_equirect_packed, unpack_frame
 from ..ops.shading import shade_planes_packed
 from ..ops.starfield import procedural_background
@@ -56,6 +51,38 @@ def make_mesh(n_devices: int | None = None, axis_names=("dp", "sp"), shape=None)
     return Mesh(np.asarray(devices).reshape(shape), axis_names)
 
 
+def _platform(mesh: Mesh) -> str:
+    return mesh.devices.flat[0].platform
+
+
+def trace_band(camera, scene, row0, band_h, *, config, use_pallas):
+    """TraceResult of rows [row0, row0+band_h) of the full image: the
+    Pallas kernel with the band's row offset, or the XLA oracle on the
+    band's rays."""
+    local_shape = (band_h, scene.screen_width)
+    if use_pallas:
+        return pallas_trace_image(
+            camera, scene, config, row0=row0, local_shape=local_shape,
+        )
+    origins, dirs = generate_rays(
+        camera,
+        scene.screen_width,
+        scene.screen_height,
+        scene.fov,
+        row_offset=row0,
+        local_shape=local_shape,
+    )
+    return trace_rays(
+        origins,
+        dirs,
+        scene.black_hole_position,
+        scene.schwarzschild_radius,
+        scene.spin,
+        scene.max_steps,
+        config,
+    )
+
+
 def _render_band(
     camera,
     scene,
@@ -67,13 +94,11 @@ def _render_band(
     *,
     config,
     use_pallas,
-    tile,
-    fast_math,
     tonemap,
-    interpret,
     seed=2020,
     texture_filter="bilinear",
     neural_params=None,
+    neural_precision="bf16",
     multires=0,
 ):
     """Render rows [row0, row0+band_h) of the full image -> packed u32 band.
@@ -92,76 +117,21 @@ def _render_band(
             camera, scene, skybox, disk_params,
             row0=row0, band_h=band_h, config=config, divisor=multires,
             texture_filter=texture_filter, seed=seed,
-            interpret=interpret, fast_math=fast_math, tile=None,
         )
     if config.integrator == "neural":
         # Phase-5 surrogate band: the MLP deflection field is trivially
-        # row-shardable (pure per-pixel matmul batch). Star-field bands on
-        # real hardware use the fused MXU kernel (same gating as the
-        # renderer); everything else takes the staged path.
-        shapes_ok = (
-            neural_params is not None
-            and len(neural_params) >= 2
-            and neural_params[0][0].shape[0] == 16
-            and neural_params[-1][0].shape[1] == 2
-            and all(w.shape[1] % 128 == 0 for w, _ in neural_params[:-1])
-        )
-        if (
-            not interpret
-            and skybox is None
-            and tonemap == "passthrough"
-            and scene.debug_mode == 0
-            and shapes_ok
-        ):
-            from ..ops.neural_pallas import neural_render_packed_band
-
-            return neural_render_packed_band(
-                neural_params, camera, scene, row0, band_h, seed=seed
-            )
+        # row-shardable (pure per-pixel matmul batch)
+        from ..models.neural import tier_matmul_args
         from ..ops.neural_trace import neural_trace_image
 
         result = neural_trace_image(
-            neural_params, camera, scene,
-            row0=row0, local_shape=(band_h, scene.screen_width),
-        )
-    elif monolithic_eligible(
-        config, scene, use_pallas=use_pallas, fast_math=fast_math,
-        skybox=skybox, disk_params=disk_params, tonemap=tonemap,
-    ):
-        return pallas_render_packed(
-            camera, scene, config, seed=seed, tile=tile, interpret=interpret,
-            row0=row0, local_shape=(band_h, scene.screen_width),
-            fast_math=fast_math,
-        )
-    elif use_pallas:
-        result = pallas_trace_image(
-            camera,
-            scene,
-            config,
-            tile=tile,
-            fast_math=fast_math,
-            interpret=interpret,
-            row0=row0,
+            neural_params, camera, scene, row0=row0,
             local_shape=(band_h, scene.screen_width),
+            **tier_matmul_args(neural_precision),
         )
     else:
-        origins, dirs = generate_rays(
-            camera,
-            scene.screen_width,
-            scene.screen_height,
-            scene.fov,
-            row_offset=row0,
-            local_shape=(band_h, scene.screen_width),
-        )
-        result = trace_rays(
-            origins,
-            dirs,
-            scene.black_hole_position,
-            scene.schwarzschild_radius,
-            scene.spin,
-            scene.max_steps,
-            config,
-        )
+        result = trace_band(camera, scene, row0, band_h, config=config,
+                            use_pallas=use_pallas)
     if skybox is None:
         background = functools.partial(procedural_background, seed=seed)
     elif texture_filter == "luma" and scene.debug_mode == 0:
@@ -199,8 +169,8 @@ def _render_band(
 
 @functools.lru_cache(maxsize=128)
 def _frame_program(
-    mesh, band_h, config, use_pallas, tile, fast_math, tonemap, interpret,
-    seed, texture_filter, multires=0,
+    mesh, band_h, config, use_pallas, tonemap, seed, texture_filter,
+    multires, neural_precision,
 ):
     """Build (once per static configuration) the jitted sharded-frame
     program. Callers hit this cache instead of re-closing and re-jitting a
@@ -212,10 +182,9 @@ def _frame_program(
         row0 = jax.lax.axis_index("sp") * band_h
         return _render_band(
             camera, scene, skybox, disk_params, lut, row0, band_h,
-            config=config, use_pallas=use_pallas, tile=tile,
-            fast_math=fast_math, tonemap=tonemap, interpret=interpret,
-            seed=seed, texture_filter=texture_filter,
-            neural_params=neural_params, multires=multires,
+            config=config, use_pallas=use_pallas, tonemap=tonemap, seed=seed,
+            texture_filter=texture_filter, neural_params=neural_params,
+            neural_precision=neural_precision, multires=multires,
         )
 
     fn = jax.shard_map(
@@ -238,13 +207,11 @@ def render_frame_sharded(
     disk_params=None,
     lut=None,
     use_pallas: bool | None = None,
-    tile=None,
-    fast_math: bool = False,
     tonemap: str = "passthrough",
-    interpret: bool | None = None,
     seed: int = 2020,
     texture_filter: str = "bilinear",
     neural_params=None,
+    neural_precision: str = "bf16",
     multires: int = 0,
 ):
     """One frame with pixel rows sharded over the mesh's 'sp' axis.
@@ -255,9 +222,7 @@ def render_frame_sharded(
     the out-of-frame tail rows are sliced off).
     """
     if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+        use_pallas = kernel_mode(_platform(mesh)) == KERNEL_COMPILED
     n_sp = mesh.shape["sp"]
     height = scene.screen_height
     band_h = -(-height // n_sp)  # ceil: pad the last band past the image
@@ -265,9 +230,8 @@ def render_frame_sharded(
         raise ValueError("sharded multires supports geodesic integrators "
                          "with passthrough tonemap only")
     program = _frame_program(
-        mesh, band_h, config, use_pallas,
-        tuple(tile) if tile is not None else None,
-        fast_math, tonemap, interpret, seed, texture_filter, int(multires),
+        mesh, band_h, config, bool(use_pallas), tonemap, seed,
+        texture_filter, int(multires), neural_precision,
     )
     packed = program(camera, scene, skybox, disk_params, lut, neural_params)
     return unpack_frame(packed[:height])
@@ -284,14 +248,12 @@ def render_animation_sharded(
     disk_params=None,
     lut=None,
     use_pallas: bool | None = None,
-    tile=None,
-    fast_math: bool = False,
     tonemap: str = "passthrough",
-    interpret: bool | None = None,
     with_stats: bool = True,
     seed: int = 2020,
     texture_filter: str = "bilinear",
     neural_params=None,
+    neural_precision: str = "bf16",
     multires: int = 0,
 ):
     """Animation with frames sharded over 'dp' and rows over 'sp'.
@@ -301,15 +263,13 @@ def render_animation_sharded(
     device scans its local frames and renders its row band — the full
     (dp x sp) mesh is busy with zero hot-loop communication. When
     `with_stats`, a per-frame mean-luminance telemetry scalar is
-    psum-reduced over 'sp' (the ICI collective exercising the mesh) and
+    psum-reduced over 'sp' (the collective exercising the mesh) and
     returned alongside the frames; band-padding rows past the real image
     height are masked out of the reduction, so the mean is exact for any
     height.
     """
     if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+        use_pallas = kernel_mode(_platform(mesh)) == KERNEL_COMPILED
     n_dp = mesh.shape["dp"]
     n_sp = mesh.shape["sp"]
     height = scene.screen_height
@@ -320,10 +280,9 @@ def render_animation_sharded(
         raise ValueError("sharded multires supports geodesic integrators "
                          "with passthrough tonemap only")
     program = _animation_program(
-        mesh, band_h, tuple(float(x) for x in orbit), config, use_pallas,
-        tuple(tile) if tile is not None else None,
-        fast_math, tonemap, interpret, with_stats, seed, texture_filter,
-        int(multires),
+        mesh, band_h, tuple(float(x) for x in orbit), config,
+        bool(use_pallas), tonemap, with_stats, seed,
+        texture_filter, int(multires), neural_precision,
     )
     frames, lums = program(times, scene, skybox, disk_params, lut, neural_params)
     frames = unpack_frame(frames[:, :height])
@@ -334,8 +293,8 @@ def render_animation_sharded(
 
 @functools.lru_cache(maxsize=128)
 def _animation_program(
-    mesh, band_h, orbit, config, use_pallas, tile, fast_math, tonemap,
-    interpret, with_stats, seed, texture_filter, multires=0,
+    mesh, band_h, orbit, config, use_pallas, tonemap, with_stats,
+    seed, texture_filter, multires, neural_precision,
 ):
     """Jitted sharded-animation program, cached per static configuration
     (see _frame_program)."""
@@ -349,10 +308,9 @@ def _animation_program(
             cam = orbit_camera(t, radius=radius, height=cam_h, rotation_speed=speed)
             band = _render_band(
                 cam, scene, skybox, disk_params, lut, row0, band_h,
-                config=config, use_pallas=use_pallas, tile=tile,
-                fast_math=fast_math, tonemap=tonemap, interpret=interpret,
-                seed=seed, texture_filter=texture_filter,
-                neural_params=neural_params, multires=multires,
+                config=config, use_pallas=use_pallas, tonemap=tonemap, seed=seed, texture_filter=texture_filter,
+                neural_params=neural_params,
+                neural_precision=neural_precision, multires=multires,
             )
             if with_stats:
                 g_chan = ((band >> 8) & jnp.uint32(0xFF)).astype(jnp.float32)
@@ -361,7 +319,7 @@ def _animation_program(
                 rows = jax.lax.broadcasted_iota(jnp.int32, band.shape, 0) + row0
                 valid = (rows < scene.screen_height).astype(jnp.float32)
                 denom = jnp.float32(scene.screen_height * scene.screen_width)
-                lum = jax.lax.psum(jnp.sum(g_chan * valid) / denom, "sp")  # ICI reduction
+                lum = jax.lax.psum(jnp.sum(g_chan * valid) / denom, "sp")
             else:
                 lum = jnp.float32(0.0)
             return carry, (band, lum)

@@ -1,6 +1,6 @@
 """Renderer engine: the public API layer.
 
-TPU-native analog of the reference's `GpuContext` + `BlackHoleRenderer`
+JAX analog of the reference's `GpuContext` + `BlackHoleRenderer`
 (reference: src/lib.rs:144-201, 317-703). The API surface preserves the
 reference names and defaults so the published notebook workflow ports
 directly (SURVEY.md §3.5):
@@ -39,13 +39,9 @@ from .core.scene import SceneParams
 from .io import image as image_io
 from .io.skybox import load_skybox
 from .models.disk import DiskParams, blackbody_lut
+from .models.neural import NEURAL_TIERS, inference_tier
 from .ops import display as display_ops
-from .ops.pallas_trace import (
-    monolithic_eligible,
-    pallas_render_packed,
-    pallas_trace_image,
-    pick_tile,
-)
+from .ops.pallas_trace import KERNEL_COMPILED, kernel_mode, pallas_trace_image
 from .ops.shading import shade_planes_packed
 from .ops.sampling import (
     pack_texture_rgba8,
@@ -59,9 +55,10 @@ from .ops.trace import TraceConfig, trace_rays
 class TpuContext:
     """Device context — the analog of GpuContext (reference: lib.rs:144-201).
 
-    Owns the jax device the renderer computes on. `new()` picks the highest-
-    performance available backend (TPU > GPU > CPU), the moral equivalent of
-    wgpu's PowerPreference::HighPerformance adapter request (lib.rs:159-166).
+    Owns the jax device the renderer computes on. `new()` takes JAX's
+    default device (a GPU when one is present, else the CPU), the moral
+    equivalent of wgpu's PowerPreference::HighPerformance adapter request
+    (lib.rs:159-166).
     """
 
     def __init__(self, device=None):
@@ -111,16 +108,11 @@ def _integrator_from_path(name: str) -> tuple[str, str]:
     static_argnames=(
         "config",
         "use_pallas",
-        "tile",
-        "fast_math",
         "tonemap",
-        "interpret",
         "seed",
         "packed",
         "texture_filter",
         "texture_subsample",
-        "kernel_knobs",
-        "neural_dtype",
         "neural_precision",
     ),
 )
@@ -133,165 +125,33 @@ def render_image(
     *,
     config: TraceConfig,
     use_pallas: bool,
-    tile,
-    fast_math: bool,
-    tonemap: str,
-    interpret: bool,
+    tonemap: str = "passthrough",
     seed: int = 2020,
     packed: bool = False,
     texture_filter: str = "bilinear",
     texture_subsample: int = 1,
-    kernel_knobs: tuple = None,
     neural_params=None,
-    neural_dtype: str = "float32",
-    neural_precision: str = "default",
+    neural_precision: str = "bf16",
 ):
     """Pure jittable frame pipeline.
 
-    `kernel_knobs` = (early_exit_every, unroll, steps_per_check) — the
-    Pallas loop-structure tuning axes (ops/pallas_trace.py build_kernel);
-    None uses the defaults. Results are identical for every knob setting:
-    steps_per_check inlines that many SELF-GATED steps per loop trip (each
-    re-derives its own termination mask), so it is a pure loop
-    restructuring (the autotuner searches all three).
-
-    `skybox` is a packed-u32 (Ht, Wt) equirect texture, or None for the
-    analytic procedural star field (ops/starfield.py — the gather-free fast
-    path). Returns uint8 (H, W, 4), or the packed u32 (H, W) frame when
-    `packed=True` (the internal TPU-friendly format; see
-    sampling.unpack_frame).
+    `use_pallas` traces with the Pallas-Triton geodesic kernel
+    (ops/pallas_trace.py); otherwise with the XLA oracle (ops/trace.py). `skybox` is a packed-u32 (Ht, Wt) equirect
+    texture, or None for the analytic procedural star field
+    (ops/starfield.py). Returns uint8 (H, W, 4), or the packed u32 (H, W)
+    frame when `packed=True` (see sampling.unpack_frame).
     """
-    from .ops.pallas_trace import DEFAULT_EARLY_EXIT_EVERY
-
     if config.integrator == "neural":
         # roadmap Phase 5: the deflection field comes from the MLP
-        # surrogate (MXU matmuls) instead of geodesic integration
-        neural_shapes_ok = (
-            neural_params is not None
-            and len(neural_params) >= 2
-            # the kernel builds both feature maps: 16-in/2-out
-            # Schwarzschild and 22-in/3-out Kerr
-            # (ops/neural_pallas._model_of)
-            and (
-                (neural_params[0][0].shape[0], neural_params[-1][0].shape[1])
-                in ((16, 2), (22, 3))
-            )
-            # Mosaic shapes compile-probed on the v5e for 128/256-wide
-            # hidden layers (scripts/neural_kernel_probe.py); other widths
-            # take the staged path until probed
-            and all(w.shape[1] % 128 == 0 for w, _ in neural_params[:-1])
-        )
-        if (
-            use_pallas
-            and not interpret
-            and skybox is None
-            and tonemap == "passthrough"
-            and scene.debug_mode == 0
-            and neural_shapes_ok
-            and neural_precision in ("default", "highest")
-        ):
-            # monolithic kernel: ray-gen -> features -> MXU MLP ->
-            # rotation -> star shading -> packed u32, zero HBM
-            # intermediates (ops/neural_pallas.py; 1.75 vs the staged
-            # path's 5.4 ms sustained at 1080p). At precision="default"
-            # matmul semantics match both staged dtypes (bf16 operands,
-            # fp32 accumulation == XLA's DEFAULT fp32-on-TPU lowering);
-            # "highest" runs fp32 multi-pass dots for fp32-trained
-            # weights (Mosaic compiles HIGHEST but not the staged
-            # path's HIGH — scripts/neural_precision_probe.py).
-            from .ops.neural_pallas import neural_render_packed
-
-            frame = neural_render_packed(
-                neural_params, camera, scene, seed=seed,
-                precision=None if neural_precision == "default"
-                else "highest",
-            )
-            return frame if packed else unpack_frame(frame)
-        if (
-            use_pallas
-            and not interpret
-            and skybox is not None
-            and scene.debug_mode == 0
-            and neural_shapes_ok
-            and jnp.dtype(neural_dtype) == jnp.float32
-            and neural_precision in ("default", "highest")
-        ):
-            # texture tiers: the same fused MXU kernel emits raw direction
-            # planes + the capture mask (ops/neural_pallas.py emit="dirs"),
-            # and only the gather epilogue — which must run at the XLA
-            # level anyway — stays staged. Replaces the fully-staged path's
-            # materialized feature/activation matrices. (The staged path
-            # remains for bf16 matmuls, debug, and unprobed MLP shapes;
-            # matmul semantics match its fp32 default: bf16 operands with
-            # fp32 accumulation == XLA's DEFAULT fp32-on-TPU lowering.)
-            from .ops.neural_pallas import neural_trace_dirs
-
-            result = neural_trace_dirs(
-                neural_params, camera, scene,
-                precision=None if neural_precision == "default"
-                else "highest",
-            )
-            return shade_image(
-                result, camera, scene, skybox, disk_params, lut,
-                tonemap=tonemap, seed=seed, packed=packed,
-                texture_filter=texture_filter,
-                texture_subsample=texture_subsample,
-            )
+        # surrogate (batched matmuls) instead of geodesic integration
+        from .models.neural import tier_matmul_args
         from .ops.neural_trace import neural_trace_image
 
         result = neural_trace_image(
-            neural_params, camera, scene, dtype=jnp.dtype(neural_dtype),
-            precision=None if neural_precision == "default"
-            else neural_precision,
-        )
-        return shade_image(
-            result, camera, scene, skybox, disk_params, lut,
-            tonemap=tonemap, seed=seed, packed=packed,
-            texture_filter=texture_filter,
-            texture_subsample=texture_subsample,
-        )
-
-    knobs = tuple(kernel_knobs) if kernel_knobs else (DEFAULT_EARLY_EXIT_EVERY, 1, 1)
-    eee, unroll, spc = knobs[:3]
-    linear = bool(knobs[3]) if len(knobs) > 3 else False
-    if monolithic_eligible(
-        config, scene, use_pallas=use_pallas, fast_math=fast_math,
-        skybox=skybox, disk_params=disk_params, tonemap=tonemap,
-    ):
-        # trace + shade fused in one kernel (single packed-u32 output)
-        frame = pallas_render_packed(
-            camera, scene, config, seed=seed, tile=tile, interpret=interpret,
-            early_exit_every=eee, unroll=unroll, steps_per_check=spc,
-            linear=linear, fast_math=fast_math,
-        )
-        return frame if packed else unpack_frame(frame)
-    if use_pallas:
-        result = pallas_trace_image(
-            camera,
-            scene,
-            config,
-            tile=tile,
-            fast_math=fast_math,
-            interpret=interpret,
-            track_steps=scene.debug_mode != 0,
-            early_exit_every=eee,
-            unroll=unroll,
-            steps_per_check=spc,
-            linear=linear,
+            neural_params, camera, scene, **tier_matmul_args(neural_precision)
         )
     else:
-        origins, dirs = generate_rays(
-            camera, scene.screen_width, scene.screen_height, scene.fov
-        )
-        result = trace_rays(
-            origins,
-            dirs,
-            scene.black_hole_position,
-            scene.schwarzschild_radius,
-            scene.spin,
-            scene.max_steps,
-            config,
-        )
+        result = trace_image(camera, scene, config, use_pallas=use_pallas)
     return shade_image(
         result,
         camera,
@@ -304,6 +164,24 @@ def render_image(
         packed=packed,
         texture_filter=texture_filter,
         texture_subsample=texture_subsample,
+    )
+
+
+def trace_image(camera, scene, config, *, use_pallas):
+    """TraceResult for the full frame: Pallas kernel or XLA oracle."""
+    if use_pallas:
+        return pallas_trace_image(camera, scene, config)
+    origins, dirs = generate_rays(
+        camera, scene.screen_width, scene.screen_height, scene.fov
+    )
+    return trace_rays(
+        origins,
+        dirs,
+        scene.black_hole_position,
+        scene.schwarzschild_radius,
+        scene.spin,
+        scene.max_steps,
+        config,
     )
 
 
@@ -408,24 +286,24 @@ class BlackHoleRenderer:
         context: TpuContext | None = None,
         skybox=None,
         use_pallas: bool | None = None,
-        tile=None,
         fast_math: bool = False,
         adaptive: bool = False,
         disk: bool = False,
         tonemap: str = "passthrough",
         dt: float | None = None,
-        interpret: bool | None = None,
         skybox_seed: int = 2020,
         texture_filter: str = "bilinear",
         texture_subsample: int = 1,
-        kernel_knobs: tuple | None = None,
         multires: int = 0,
         cache_deflection: bool = False,
         neural_params=None,
-        neural_dtype: str = "float32",
         neural_precision: str = "auto",
         custom_physics=None,
     ):
+        """`fast_math` selects the Pallas kernel's approximate math tier
+        (TraceConfig.fast_math): faster on the GPU, within the oracle parity
+        contract. The default is the exact tier; the XLA oracle
+        (`use_pallas=False`) is always exact."""
         self.context = context or TpuContext.new()
         self.width = int(width)
         self.height = int(height)
@@ -448,11 +326,6 @@ class BlackHoleRenderer:
                 "custom_capture_factor": cap,
             }
             model = "custom"
-            if multires:
-                raise ValueError(
-                    "custom physics runs on the scratch-status kernel, which "
-                    "has no strided/multires flavor — use full resolution"
-                )
         elif model == "custom":
             raise ValueError("model='custom' needs custom_physics=")
         self.config = TraceConfig(
@@ -460,6 +333,7 @@ class BlackHoleRenderer:
             model=model or path_model,
             adaptive=adaptive,
             disk=disk,
+            fast_math=bool(fast_math),
             **({"dt": dt} if dt is not None else {}),
             **extra_cfg,
         )
@@ -467,14 +341,13 @@ class BlackHoleRenderer:
         # deflection (models/neural.py, models/neural_kerr.py) — no
         # disk/adaptive/debug
         self.neural_params = None
-        self.neural_dtype = str(neural_dtype)
-        # inference matmul pass count; must match the weights' training
-        # precision (models/neural.mlp_apply precision note). "auto"
-        # resolves from the asset meta below; explicit values override.
-        if neural_precision not in ("auto", "default", "high", "highest"):
+        # matmul tier of the surrogate: it must match the precision the
+        # weights were trained at (models/neural.tier_matmul_args); "auto"
+        # resolves from the asset meta below
+        if neural_precision not in ("auto", *NEURAL_TIERS):
             raise ValueError(
-                "neural_precision must be auto/default/high/highest, got "
-                f"{neural_precision!r}"
+                f"neural_precision must be auto/{'/'.join(NEURAL_TIERS)}, "
+                f"got {neural_precision!r}"
             )
         self.neural_precision = neural_precision
         if integ == "neural":
@@ -537,39 +410,22 @@ class BlackHoleRenderer:
                         np.asarray(meta["spin_range"], np.float32)
                     )
                 if self.neural_precision == "auto":
-                    # bf16-trained weights (no train_precision meta, or
-                    # "default") are NATIVE to single-pass bf16 matmuls;
-                    # fp32-trained ones (round-5 Kerr distill) need a
-                    # multi-pass tier — "high" (3-pass bf16) carries
-                    # ~fp32 quality at half the "highest" cost.
-                    tp = str(meta.get("train_precision", "default"))
-                    self.neural_precision = (
-                        "high" if tp in ("float32", "highest", "high",
-                                         "tensorfloat32")
-                        else "default"
+                    self.neural_precision = inference_tier(
+                        meta.get("train_precision")
                     )
-            if self.neural_precision == "auto":
-                # raw param pytree, no meta to consult
-                self.neural_precision = "default"
             self.neural_params = jax.device_put(
                 neural_params, self.context.device
             )
+        if self.neural_precision == "auto":
+            # no asset meta to consult (raw param pytree, or no surrogate):
+            # the committed assets' training tier
+            self.neural_precision = inference_tier(None)
+        mode = kernel_mode(self.context.platform)
         if use_pallas is None:
-            # Pallas is the perf path on TPU; the XLA oracle is the default
-            # elsewhere (it vectorizes well on CPU and is the numerics oracle).
-            use_pallas = self.context.platform == "tpu"
+            # the kernel is the GPU path; the XLA oracle is the CPU default
+            use_pallas = mode == KERNEL_COMPILED
         self.use_pallas = bool(use_pallas)
-        self.tile = (
-            tuple(tile)
-            if tile is not None
-            else pick_tile(self.width, self.height, fast_math)
-        )
-        self.kernel_knobs = tuple(kernel_knobs) if kernel_knobs else None
-        self.fast_math = bool(fast_math)
         self.tonemap = tonemap
-        if interpret is None:
-            interpret = self.context.platform != "tpu"
-        self.interpret = bool(interpret)
 
         # default camera/scene (reference: lib.rs:354-370)
         self.camera = Camera.default()
@@ -581,10 +437,9 @@ class BlackHoleRenderer:
         # load_texture_from_file + queue.write_texture, lib.rs:208-267)
         if texture_filter == "fast":
             raise ValueError(
-                "the 'fast' prefiltered tier was removed (strictly inside "
-                "the speed/quality frontier — 40 ms and a 512 MB table vs "
-                "nearest's 24 ms); use 'luma' (bilinear-exact luminance at "
-                "~nearest cost) instead"
+                "the 'fast' prefiltered tier was removed (a 512 MB table "
+                "for an approximation); use 'luma' (bilinear-exact "
+                "luminance at ~nearest gather count) instead"
             )
         if texture_filter not in ("bilinear", "nearest", "luma"):
             raise ValueError(
@@ -613,8 +468,7 @@ class BlackHoleRenderer:
             )
             if texture_filter == "bilinear":
                 # exact bilinear at ONE slice-3 row gather/pixel: the three
-                # channel corner-words of a footprint sit contiguously, and
-                # TPU gathers price per index, not per word
+                # channel corner-words of a footprint sit contiguously
                 # (ops/sampling.corner_pack_texture_rows)
                 from .ops.sampling import corner_pack_texture_rows
 
@@ -648,9 +502,9 @@ class BlackHoleRenderer:
         self._last_frame = None
         logger.info(
             "BlackHoleRenderer %dx%d on %s: integrator=%s model=%s pallas=%s "
-            "tile=%s fast_math=%s skybox=%s",
+            "skybox=%s",
             self.width, self.height, self.context.device, self.config.integrator,
-            self.config.model, self.use_pallas, self.tile, self.fast_math,
+            self.config.model, self.use_pallas,
             "texture" if self.skybox is not None else "procedural",
         )
 
@@ -721,33 +575,6 @@ class BlackHoleRenderer:
         disk_params = (
             DiskParams.for_scene(scene.schwarzschild_radius) if self.config.disk else None
         )
-        if (
-            self.config.disk
-            and self.use_pallas
-            and scene.debug_mode == 0
-            # every config that selects the stateless (y-sentinel) disk
-            # kernel: both math tiers, except kerr_lt exact which falls
-            # back to the scratch-status kernel
-            and (self.fast_math or self.config.model != "kerr_lt")
-        ):
-            # the stateless fast kernel encodes disk hits as a y-position
-            # sentinel outside the escape sphere; a camera placed outside
-            # the escape sphere would freeze rays at start positions that
-            # alias the sentinel band (misclassifying them as disk hits)
-            cam_r = float(
-                np.linalg.norm(
-                    np.asarray(camera.position, np.float32)
-                    - np.asarray(scene.black_hole_position, np.float32)
-                )
-            )
-            if cam_r >= self.config.escape_radius:
-                raise ValueError(
-                    f"disk rendering on the fast path requires the camera "
-                    f"inside the escape sphere (|camera - bh| = {cam_r:.1f} "
-                    f">= escape_radius = {self.config.escape_radius:.1f}); "
-                    f"move the camera closer, raise TraceConfig.escape_radius, "
-                    f"or disable fast_math"
-                )
         if timestamp_query is not None:
             timestamp_query.begin()
         if self.cache_deflection and scene.debug_mode == 0:
@@ -767,16 +594,11 @@ class BlackHoleRenderer:
             self._lut,
             config=self.config,
             use_pallas=self.use_pallas,
-            tile=self.tile,
-            fast_math=self.fast_math,
             tonemap=self.tonemap,
-            interpret=self.interpret,
             seed=self.skybox_seed,
             texture_filter=self._sample_filter,
             texture_subsample=self.texture_subsample,
-            kernel_knobs=self.kernel_knobs,
             neural_params=self.neural_params,
-            neural_dtype=self.neural_dtype,
             neural_precision=self.neural_precision,
         )
         if timestamp_query is not None:
@@ -798,8 +620,7 @@ class BlackHoleRenderer:
         return (
             tuple(np.asarray(a, np.float32).tobytes() for a in arrs),
             scene.max_steps, scene.screen_width, scene.screen_height,
-            self.config, self.use_pallas, self.fast_math, self.tile,
-            self.kernel_knobs,
+            self.config, self.use_pallas, self.neural_precision,
         )
 
     def _render_cached(self, camera, scene, disk_params):
@@ -808,31 +629,16 @@ class BlackHoleRenderer:
         key = self._static_key(camera, scene)
         if key != self._deflection_key:
             if self.config.integrator == "neural":
+                from .models.neural import tier_matmul_args
                 from .ops.neural_trace import neural_trace_image_jit
 
                 result = neural_trace_image_jit(
                     self.neural_params, camera, scene,
-                    dtype=jnp.dtype(self.neural_dtype),
-                    precision=None if self.neural_precision == "default"
-                    else self.neural_precision,
-                )
-            elif self.use_pallas:
-                knobs = self.kernel_knobs or (64, 1, 1)
-                result = pallas_trace_image(
-                    camera, scene, self.config, tile=self.tile,
-                    fast_math=self.fast_math, interpret=self.interpret,
-                    track_steps=False, early_exit_every=knobs[0],
-                    unroll=knobs[1], steps_per_check=knobs[2],
-                    linear=bool(knobs[3]) if len(knobs) > 3 else False,
+                    **tier_matmul_args(self.neural_precision),
                 )
             else:
-                origins, dirs = generate_rays(
-                    camera, scene.screen_width, scene.screen_height, scene.fov
-                )
-                result = trace_rays(
-                    origins, dirs, scene.black_hole_position,
-                    scene.schwarzschild_radius, scene.spin, scene.max_steps,
-                    self.config,
+                result = trace_image(
+                    camera, scene, self.config, use_pallas=self.use_pallas
                 )
             self._deflection_key = key
             self._deflection_result = result
@@ -854,9 +660,7 @@ class BlackHoleRenderer:
         """Approximate frame via 1/divisor-resolution geodesics + shadow-edge
         fix-up (reference roadmap Phase 4-1; ops/multires.py). The star
         field / texture shades at FULL resolution on the interpolated
-        deflection field, so only the lensing geometry is coarse. ~1.35x
-        faster than render_frame at the 1080p x 500 headline (6.99 vs
-        9.43 ms on v5e). Disk configs interpolate the hit-position field
+        deflection field, so only the lensing geometry is coarse. Disk configs interpolate the hit-position field
         the same way (ops/multires.py docstring); debug modes are not
         supported."""
         from .ops.multires import render_multires
@@ -875,8 +679,7 @@ class BlackHoleRenderer:
         frame = render_multires(
             camera, scene, self.skybox, disk_params, self._lut,
             config=self.config, divisor=divisor,
-            texture_filter=self._sample_filter, seed=self.skybox_seed,
-            interpret=self.interpret, fast_math=self.fast_math, **kw,
+            texture_filter=self._sample_filter, seed=self.skybox_seed, **kw,
         )
         self.camera = camera
         self.scene = scene
@@ -889,18 +692,14 @@ class BlackHoleRenderer:
 
         The generality story of the Phase-5 surrogate (reference
         docs/ROADMAP.md:1217-1337): the general net covers the full
-        (r0, rs) domain at star-field SSIM ~0.95; per-scene distilled
-        weights clear the roadmap's >0.99 bar on the orbit scene class
-        (recorded: 0.99414/0.99624, BENCHMARKS.md). On arbitrary scenes
-        the recorded off-orbit demo reaches 0.978
-        (measurements/round4/distill_demo.jsonl) — distillation closes
-        most, not provably all, of the general-net gap; gauge a new
-        scene with scripts/neural_quality.py. This makes distillation a
+        (r0, rs) domain; per-scene distilled weights target the roadmap's
+        >0.99 star-field SSIM bar on their scene class. Distillation
+        closes most, not provably all, of the general-net gap; gauge a
+        new scene with scripts/neural_quality.py. This makes distillation a
         first-class renderer operation instead of an offline pipeline:
         generate oracle rollouts on the scene's (r0, rs) manifold,
-        fine-tune the current weights (width preserved, so the fused MXU
-        kernel keeps serving them and the already-compiled frame
-        functions are reused as-is), and swap them in.
+        fine-tune the current weights (width preserved, so the
+        already-compiled frame functions are reused as-is), and swap them in.
 
         Returns the held-out metrics dict (median/p99 deflection error in
         degrees, capture accuracy, final loss). `save` optionally writes
@@ -990,10 +789,7 @@ class BlackHoleRenderer:
         # can auto-select the matching inference tier.
         tp = jax.config.jax_default_matmul_precision
         tp = "default" if tp is None else str(tp)
-        self.neural_precision = (
-            "high" if tp in ("float32", "highest", "high", "tensorfloat32")
-            else "default"
-        )
+        self.neural_precision = inference_tier(tp)
         if save:
             save_fn(
                 str(save), params,
@@ -1038,7 +834,7 @@ def block_on(value):
     """Run an awaitable to completion, or pass plain values through.
 
     API-parity helper for the reference's Jupyter `block_on`
-    (reference: src/lib.rs:712-716). The TPU renderer is synchronous, so
+    (reference: src/lib.rs:712-716). The renderer is synchronous, so
     ported notebook cells like `block_on(GpuContext.new())` just work.
     """
     if inspect.isawaitable(value):

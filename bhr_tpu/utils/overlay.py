@@ -5,7 +5,7 @@ reference's optional egui GUI (reference: src/main.rs:587-826, cargo feature
 The reference draws an FPS window with stats.js-style mini line graphs for
 frame/CPU/GPU times (main.rs:762-826) and, in debug mode, a step-count
 legend window mirroring the shader gradient (main.rs:637-759). With no
-window system on a TPU host, the same panels are rasterized directly onto
+window system on a headless host, the same panels are rasterized directly onto
 the output frames (PIL, host-side, display path only — never in the render
 hot path).
 """

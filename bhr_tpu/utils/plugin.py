@@ -3,7 +3,7 @@
 The reference loads *arbitrary user WGSL at runtime* (reference:
 src/lib.rs:425-429, src/main.rs:30 — a deliberate hot-swap mechanism for
 iterating on integrators without recompiling the host binary). The
-TPU-native analog is a user Python file defining an acceleration in
+JAX analog is a user Python file defining an acceleration in
 struct-of-arrays plane form:
 
     # my_metric.py

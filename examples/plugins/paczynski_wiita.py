@@ -15,7 +15,7 @@ Run it from the CLI exactly like the reference hot-swaps WGSL integrators
 
 The signature is struct-of-arrays plane form: rel/vel are 3-tuples of
 same-shaped fp32 arrays, r/r2/rs/spin broadcast over them. It is traced by
-JAX into both the XLA oracle and the Pallas TPU kernel — write it with jnp
+JAX into both the XLA oracle and the Pallas GPU kernel — write it with jnp
 ops only (no Python control flow on array values).
 """
 

@@ -3,7 +3,7 @@
 // The reference loads its star map with the Rust `exr` crate, which handles
 // every EXR compression scheme including PIZ — the scheme the actual NASA
 // starmap_2020_4k.exr asset ships with (reference: src/lib.rs:270-308,
-// Cargo.toml `exr`). The TPU build's pure-Python reader (io/skybox.py)
+// Cargo.toml `exr`). This build's pure-Python reader (io/skybox.py)
 // covers NONE/ZIPS/ZIP scanline files dependency-free; this native module
 // fills in the rest (PIZ, PXR24, B44, DWA, tiled, deep-to-flat) by linking
 // the battle-tested OpenEXR implementation — the same "use the reference

@@ -1,8 +1,8 @@
-// bhr_native: native I/O runtime for the TPU black-hole renderer.
+// bhr_native: native I/O runtime for the black-hole renderer.
 //
 // The reference implements its readback + image-save pipeline in native Rust
 // (reference: src/lib.rs:613-702, staging-buffer readback + `image` crate
-// encode). This is the TPU build's native equivalent: a C++ PNG encoder with
+// encode). This is the build's native equivalent: a C++ PNG encoder with
 // an asynchronous worker pool, so animation frame dumps (the only host-side
 // hot path) overlap with on-device rendering instead of stalling it.
 //

@@ -63,12 +63,11 @@ def main():
     ap.add_argument("--train-precision", default="default",
                     choices=["default", "float32", "highest"],
                     help="matmul precision for the whole distill process "
-                         "(dataset gen + training). The TPU's DEFAULT "
-                         "lowers fp32 matmuls to one bf16 MXU pass "
-                         "(~0.2%% relative half-ulp); the d5 residual is "
-                         "~0.2%% of local deflection in every band, so "
-                         "this flag discriminates a training-precision "
-                         "fit floor from a capacity one.")
+                         "(dataset gen + training). 'default' leaves fp32 "
+                         "products to the backend (bf16 or TF32 passes on "
+                         "accelerators, ~0.2%% relative); 'float32'/"
+                         "'highest' train fp32-native weights, which the "
+                         "renderer then serves at its 'highest' tier.")
     args = ap.parse_args()
 
     import jax

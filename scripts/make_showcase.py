@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Regenerate the docs/img showcase assets (run on the TPU)."""
+"""Regenerate the docs/img showcase assets (run on the GPU)."""
 
 import os
 import sys

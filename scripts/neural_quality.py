@@ -2,13 +2,14 @@
 """Phase-5 surrogate quality at full scale: neural vs integrated frames.
 
 Renders the headline scene (1080p x 500 steps by default) through the
-Pallas geodesic kernel and through the neural surrogate on the same
-device, then reports: SSIM (the roadmap's acceptance metric — target
+geodesic integrator (the Pallas kernel on a GPU, the XLA oracle on the
+CPU) and through the neural surrogate on the same device, then reports: SSIM (the roadmap's acceptance metric — target
 > 0.99, docs/ROADMAP.md:1320-1336), capture-mask IoU, median / p99
 angular deflection error over mutually-escaped pixels, and mean u8
-error. Run on the TPU; pass --texture to compare under the 4K texture
-skybox instead of the analytic star field, --dtype bfloat16 for the
-bf16 inference tier, --orbit N to aggregate over N orbit-camera frames.
+error. Run on the GPU; pass --texture to compare under the 4K texture
+skybox instead of the analytic star field, --precision bf16|highest to
+override the asset's matmul tier, --orbit N to aggregate over N
+orbit-camera frames.
 
 Usage: python scripts/neural_quality.py [--width W --height H --steps N]
 """
@@ -37,12 +38,11 @@ def main():
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--steps", type=int, default=500)
-    ap.add_argument("--dtype", default="float32")
     ap.add_argument("--precision", default="auto",
-                    choices=["auto", "default", "high", "highest"],
-                    help="inference matmul pass tier; 'auto' resolves "
-                         "from the asset's train_precision meta "
-                         "(models/neural.mlp_apply precision note)")
+                    choices=["auto", "bf16", "highest"],
+                    help="inference matmul tier; 'auto' resolves from the "
+                         "asset's train_precision meta "
+                         "(models/neural.tier_matmul_args)")
     ap.add_argument("--texture", action="store_true")
     ap.add_argument("--orbit", type=int, default=1,
                     help="aggregate over N orbit-camera frames")
@@ -83,9 +83,10 @@ def main():
 
     from bhr_tpu import BlackHoleRenderer, SceneParams
     from bhr_tpu.core.camera import orbit_camera
+    from bhr_tpu.models.neural import tier_matmul_args
     from bhr_tpu.ops.neural_trace import neural_trace_image_jit
-    from bhr_tpu.ops.pallas_trace import pallas_trace_image
     from bhr_tpu.ops.trace import STATUS_CAPTURED, TraceConfig
+    from bhr_tpu.renderer import trace_image
 
     if args.model == "kerr":
         from bhr_tpu.models.neural_kerr import load_params
@@ -104,16 +105,14 @@ def main():
         skybox = procedural_starfield(2048, 4096, seed=2020)
 
     kw = dict(skybox=skybox) if skybox is not None else {}
-    ref = BlackHoleRenderer(w, h, fast_math=True, model=args.model, **kw)
+    ref = BlackHoleRenderer(w, h, model=args.model, **kw)
     net = BlackHoleRenderer(
         w, h, integrator="neural", model=args.model,
-        neural_dtype=args.dtype, neural_params=args.weights,
-        neural_precision=args.precision, **kw
+        neural_params=args.weights, neural_precision=args.precision, **kw
     )
     params, meta = load_params(args.weights)
 
     cfg = TraceConfig(model=args.model)
-    on_tpu = jax.default_backend() != "cpu"
     ssims, ious, medians, p99s, mean_u8 = [], [], [], [], []
     if args.domain:
         # deterministic domain sample matching models/neural.sample_rays'
@@ -159,23 +158,10 @@ def main():
         mean_u8.append(float(np.abs(f_ref - f_net)[..., :3].mean()))
 
         # deflection-field comparison (independent of shading)
-        if on_tpu:
-            res_ref = pallas_trace_image(
-                cam, scene, cfg, fast_math=True, interpret=False
-            )
-        else:
-            from bhr_tpu.core.camera import generate_rays
-            from bhr_tpu.ops.trace import trace_rays
-
-            o, d = generate_rays(cam, w, h, scene.fov)
-            res_ref = trace_rays(
-                o, d, scene.black_hole_position,
-                scene.schwarzschild_radius, scene.spin, steps, cfg,
-            )
+        res_ref = trace_image(cam, scene, cfg, use_pallas=ref.use_pallas)
         res_net = neural_trace_image_jit(
-            net.neural_params, cam, scene, dtype=jnp.dtype(args.dtype),
-            precision=None if net.neural_precision == "default"
-            else net.neural_precision,
+            net.neural_params, cam, scene,
+            **tier_matmul_args(net.neural_precision),
         )
         cap_r = np.asarray(res_ref.status == STATUS_CAPTURED)
         cap_n = np.asarray(res_net.status == STATUS_CAPTURED)
@@ -231,9 +217,7 @@ def main():
                 + ("_kerr" if args.model == "kerr" else "")
                 + ("_texture" if args.texture else "")
                 + (f"_domain{args.domain}" if args.domain else "")
-                + (f"_{args.dtype}" if args.dtype != "float32" else "")
-                + (f"_prec-{net.neural_precision}"
-                   if net.neural_precision != "default" else ""),
+                + f"_prec-{net.neural_precision}",
                 "frames": n_frames,
                 "ssim": round(float(np.mean(ssims)), 5),
                 "ssim_min": round(float(np.min(ssims)), 5),

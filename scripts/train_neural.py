@@ -11,7 +11,7 @@ Reference: docs/ROADMAP.md:1217-1337 (the roadmap's GeodesicMLP plan;
 success criteria "inference < 1/10 integration time, SSIM > 0.99").
 
 Usage:
-    python scripts/train_neural.py                 # full run (TPU, ~min)
+    python scripts/train_neural.py                 # full run (GPU)
     python scripts/train_neural.py --cpu --quick   # smoke run
 """
 

@@ -10,7 +10,7 @@ Reference: docs/ROADMAP.md:514-826 (Kerr) x :1217-1337 (GeodesicMLP);
 GravLensX — the roadmap's citation — is specifically a Kerr surrogate.
 
 Usage:
-    python scripts/train_neural_kerr.py              # full run (TPU)
+    python scripts/train_neural_kerr.py              # full run (GPU)
     python scripts/train_neural_kerr.py --cpu --quick
 """
 

@@ -30,6 +30,17 @@ def test_parser_accepts_leapfrog():
     assert build_parser().parse_args(["--integrator", "leapfrog"]).integrator == "leapfrog"
 
 
+@pytest.mark.parametrize("flags, fast", [([], True), (["--no-fast-math"], False)])
+def test_app_fast_math_reaches_the_kernel(flags, fast):
+    """The app defaults to the kernel's approximate tier; --no-fast-math
+    selects the exact one, like the library default."""
+    from bhr_tpu import BlackHoleRenderer
+
+    assert build_parser().parse_args(flags).fast_math is fast
+    assert BlackHoleRenderer(16, 8, fast_math=fast).config.fast_math is fast
+    assert BlackHoleRenderer(16, 8).config.fast_math is False
+
+
 def test_app_renders_frames_and_logs(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     out = str(tmp_path / "frames")

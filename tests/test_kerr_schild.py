@@ -143,7 +143,7 @@ def test_capture_radius_shrinks_with_spin():
 
 def test_horizon_penetration_no_nans():
     """KS coordinates are horizon-penetrating: integrating a plunging ray
-    through r_+ produces finite state (the property that lets the TPU
+    through r_+ produces finite state (the property that lets the GPU
     kernel run clamp-free)."""
     q = jnp.asarray([6.0, 0.5, 0.0], jnp.float32)
     d = jnp.asarray([-1.0, 0.0, 0.0], jnp.float32)

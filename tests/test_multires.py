@@ -38,20 +38,15 @@ def test_upsample_bilinear_reproduces_linear_field():
 
 
 def test_masked_trace_freezes_skipped_rays_and_matches_kept():
-    """mask=0 rays freeze at step 0 (sentinel, ESCAPED); mask=1 rays are
+    """mask=0 rays start finished (ESCAPED, 0 steps); mask=1 rays are
     bit-identical to the unmasked render."""
     cam = Camera.default()
     scene = _scene(64, 32, 120)
     cfg = TraceConfig()
-    full = pallas_trace_image(
-        cam, scene, cfg, interpret=True, fast_math=True, track_steps=False,
-    )
+    full = pallas_trace_image(cam, scene, cfg)
     mask = np.zeros((32, 64), np.float32)
     mask[8:24, :] = 1.0
-    got = pallas_trace_image(
-        cam, scene, cfg, interpret=True, fast_math=True, track_steps=False,
-        mask=jnp.asarray(mask),
-    )
+    got = pallas_trace_image(cam, scene, cfg, mask=jnp.asarray(mask))
     kept = mask > 0
     np.testing.assert_array_equal(
         np.asarray(got.status)[kept], np.asarray(full.status)[kept]
@@ -59,9 +54,9 @@ def test_masked_trace_freezes_skipped_rays_and_matches_kept():
     np.testing.assert_array_equal(
         np.asarray(got.final_vel)[kept], np.asarray(full.final_vel)[kept]
     )
-    # skipped rays froze immediately: status ESCAPED (outside the escape
-    # sphere by construction), velocity = their initial direction
+    # skipped rays never entered the loop: status ESCAPED, 0 steps
     assert (np.asarray(got.status)[~kept] == 1).all()
+    assert (np.asarray(got.steps)[~kept] == 0).all()
 
 
 def test_edge_mask_covers_shadow_boundary():
@@ -69,10 +64,7 @@ def test_edge_mask_covers_shadow_boundary():
     must be flagged (plus dilation)."""
     cam = Camera.default()
     scene = _scene(48, 32, 200)
-    low = pallas_trace_image(
-        cam, scene, TraceConfig(), interpret=True, fast_math=True,
-        track_steps=False,
-    )
+    low = pallas_trace_image(cam, scene, TraceConfig())
     st = np.asarray(low.status)
     assert (st == 2).any(), "scene must contain a shadow"
     vel = np.asarray(low.final_vel)
@@ -103,14 +95,12 @@ def test_multires_matches_full_render_within_budget(divisor):
     full = np.asarray(
         render_image(
             cam, scene, None, None, None, config=TraceConfig(),
-            use_pallas=True, tile=(8, 128), fast_math=True,
-            tonemap="passthrough", interpret=True,
+            use_pallas=True, tonemap="passthrough",
         )
     ).astype(np.int32)
     multi = np.asarray(
         render_multires(
             cam, scene, None, config=TraceConfig(), divisor=divisor,
-            interpret=True, tile=(8, 128),
         )
     ).astype(np.int32)
     diff = np.abs(full[..., :3] - multi[..., :3])
@@ -136,14 +126,12 @@ def test_multires_disk_matches_full_render_within_budget():
     full = np.asarray(
         render_image(
             cam, scene, None, dp, lut, config=cfg,
-            use_pallas=True, tile=(8, 128), fast_math=True,
-            tonemap="passthrough", interpret=True,
+            use_pallas=True, tonemap="passthrough",
         )
     ).astype(np.int32)
     multi = np.asarray(
         render_multires(
             cam, scene, None, dp, lut, config=cfg, divisor=2,
-            interpret=True, tile=(8, 128),
         )
     ).astype(np.int32)
     diff = np.abs(full[..., :3] - multi[..., :3])
@@ -155,8 +143,7 @@ def test_multires_disk_requires_params():
     cam = Camera.default()
     scene = _scene()
     with pytest.raises(ValueError, match="disk_params"):
-        render_multires(cam, scene, None, config=TraceConfig(disk=True),
-                        interpret=True)
+        render_multires(cam, scene, None, config=TraceConfig(disk=True))
 
 
 def test_renderer_multires_method():
@@ -175,13 +162,10 @@ def test_strided_low_pass_matches_full_grid_points():
     cam = Camera.default()
     scene = _scene(96, 64, 60)
     cfg = TraceConfig(model="flat")
-    full = pallas_trace_image(
-        cam, scene, cfg, interpret=True, fast_math=True, track_steps=False,
-    )
+    full = pallas_trace_image(cam, scene, cfg)
     d = 4
     low = pallas_trace_image(
-        cam, scene, cfg, interpret=True, fast_math=True, track_steps=False,
-        local_shape=(64 // d, 96 // d), stride=d,
+        cam, scene, cfg, local_shape=(64 // d, 96 // d), stride=d
     )
     np.testing.assert_allclose(
         np.asarray(low.final_vel),

@@ -293,187 +293,23 @@ def test_sample_rays_kerr_cth_band():
     assert cth.min() >= 0.2 - 1e-5 and cth.max() <= 0.45 + 1e-5
 
 
-# ---------------------------------------------------------------------------
-# fused MXU kernel, Kerr flavor (ops/neural_pallas.py model="kerr")
-
-
-@pytest.mark.skipif(
-    not KERR_WEIGHTS.exists(), reason="Kerr weights not trained yet"
-)
-class TestKerrFusedKernel:
-    @classmethod
-    def setup_class(cls):
-        cls.params, _ = nk.load_params(str(KERR_WEIGHTS))
-        cls.scene = SceneParams(
-            screen_width=128, screen_height=96, max_steps=500,
-            spin=jnp.float32(0.9),
-        )
-        cls.cam = Camera.default()
-
-    def test_kernel_matches_staged_bf16(self):
-        """The fused Kerr kernel (interpret mode) must reproduce the
-        staged XLA path at matching matmul semantics (bf16 operands):
-        it is the TPU production path for model='kerr' star frames."""
-        from bhr_tpu.ops.neural_pallas import neural_render_packed
-        from bhr_tpu.ops.sampling import unpack_frame
-        from bhr_tpu.renderer import render_image
-
-        kernel_frame = np.asarray(
-            unpack_frame(
-                neural_render_packed(
-                    self.params, self.cam, self.scene, interpret=True
-                )
-            )
-        ).astype(np.int32)
-        staged = np.asarray(
-            render_image(
-                self.cam, self.scene, None, None, None,
-                config=TraceConfig(integrator="neural", model="kerr"),
-                use_pallas=False, tile=(8, 128), fast_math=True,
-                tonemap="passthrough", interpret=True,
-                neural_params=self.params, neural_dtype="bfloat16",
-            )
-        ).astype(np.int32)
-        diff = np.abs(kernel_frame - staged).max(-1)
-        assert (diff > 2).mean() < 1e-3
-        assert (diff == 0).mean() > 0.99
-
-    def test_dirs_kernel_matches_staged_texture(self):
-        """emit='dirs' Kerr flavor + staged texture epilogue vs the
-        fully-staged texture render (the TPU path for kerr + texture)."""
-        from bhr_tpu.io.skybox import procedural_starfield
-        from bhr_tpu.ops.neural_pallas import neural_trace_dirs
-        from bhr_tpu.ops.sampling import pack_texture_rgba8, unpack_frame
-        from bhr_tpu.renderer import render_image, shade_image
-
-        skybox = pack_texture_rgba8(procedural_starfield(64, 128, seed=7))
-        result = neural_trace_dirs(
-            self.params, self.cam, self.scene, interpret=True
-        )
-        assert result.final_vel.shape == (96, 128, 3)
-        kernel_frame = np.asarray(
-            unpack_frame(
-                shade_image(
-                    result, self.cam, self.scene, skybox, None, None,
-                    tonemap="passthrough", packed=True,
-                    texture_filter="nearest",
-                )
-            )
-        ).astype(np.int32)
-        staged = np.asarray(
-            render_image(
-                self.cam, self.scene, skybox, None, None,
-                config=TraceConfig(integrator="neural", model="kerr"),
-                use_pallas=False, tile=(8, 128), fast_math=True,
-                tonemap="passthrough", interpret=True,
-                neural_params=self.params, neural_dtype="bfloat16",
-                texture_filter="nearest",
-            )
-        ).astype(np.int32)
-        diff = np.abs(kernel_frame - staged).max(-1)
-        assert (diff > 2).mean() < 5e-3
-        assert (diff == 0).mean() > 0.97
-
-    def test_band_matches_full_frame_slice(self):
-        """Kerr band flavor == the corresponding full-frame rows."""
-        from bhr_tpu.ops.neural_pallas import (
-            neural_render_packed,
-            neural_render_packed_band,
-        )
-
-        scene = self.scene.replace(screen_width=128, screen_height=64)
-        full = np.asarray(
-            neural_render_packed(self.params, self.cam, scene, interpret=True)
-        )
-        band = np.asarray(
-            neural_render_packed_band(
-                self.params, self.cam, scene, 16, 32, interpret=True
-            )
-        )
-        np.testing.assert_array_equal(band, full[16:48])
-
-    def test_feat_pad_is_exact(self):
-        """Zero-row feature padding with zero-column weight padding must
-        be bit-exact vs the unpadded kernel (zeros contribute exactly
-        0.0): interpret-mode check of the pad algebra."""
-        from bhr_tpu.ops import neural_pallas as npl
-
-        full = np.asarray(
-            npl._render(
-                npl._pack_params(self.cam, self.scene),
-                npl.prep_weights(self.params, feat_pad=0),
-                height=48, width=64, block_p=256, seed=2020,
-                interpret=True, n_layers=len(self.params),
-                model="kerr", feat_pad=0,
-            )
-        )
-        padded = np.asarray(
-            npl._render(
-                npl._pack_params(self.cam, self.scene),
-                npl.prep_weights(self.params, feat_pad=2),
-                height=48, width=64, block_p=256, seed=2020,
-                interpret=True, n_layers=len(self.params),
-                model="kerr", feat_pad=2,
-            )
-        )
-        np.testing.assert_array_equal(full, padded)
-
-    def test_spin_zero_reduces_toward_schwarzschild_form(self):
-        """At spin=0 the Kerr kernel's chi envelope collapses (|a*|+1e-3
-        scale) and xi == 0: the kernel must still run and produce a
-        finite frame (regression guard on the spin-block algebra)."""
-        from bhr_tpu.ops.neural_pallas import neural_render_packed
-        from bhr_tpu.ops.sampling import unpack_frame
-
-        scene = self.scene.replace(spin=jnp.float32(0.0))
-        frame = np.asarray(
-            unpack_frame(
-                neural_render_packed(self.params, self.cam, scene,
-                                     interpret=True)
-            )
-        )
-        assert frame.shape == (96, 128, 4)
-        assert (frame[..., 3] == 255).all()
-
-
-def test_fused_kernel_highest_matches_staged_high(tmp_path):
-    """The precision-tier kernel flavor (fp32 operands + HIGHEST dots,
-    round 5) agrees with the staged HIGH path. In interpret mode both
-    are true fp32, so frames must match exactly; on the real TPU the
-    on-device gauge is scripts/neural_device_check.py."""
-    import numpy as np
-
+def test_kerr_fp32_asset_serves_highest_tier(tmp_path):
+    """An fp32-trained Kerr asset resolves to the fp32-at-HIGHEST tier, and
+    that tier renders the same frame whether chosen by meta or by hand."""
     from bhr_tpu import BlackHoleRenderer
-    from bhr_tpu.models import neural_kerr
 
-    params = neural_kerr.init_params(jax.random.PRNGKey(7), (128, 128))
+    params = nk.init_params(jax.random.PRNGKey(7), (32, 32))
     path = tmp_path / "kerr_fp32.npz"
-    neural_kerr.save_params(
+    nk.save_params(
         str(path), params,
         meta=dict(max_steps=100, train_precision="float32"),
     )
     mk = dict(integrator="neural", model="kerr", neural_params=str(path))
     r_auto = BlackHoleRenderer(64, 48, **mk)
-    assert r_auto.neural_precision == "high"  # auto from meta
+    assert r_auto.neural_precision == "highest"  # auto from meta
     r_hi = BlackHoleRenderer(64, 48, neural_precision="highest", **mk)
     scene = r_hi.scene.replace(spin=jnp.float32(0.9))
-    f_staged = np.asarray(r_auto.render_frame(scene=scene))
-    f_stg_hi = np.asarray(r_hi.render_frame(scene=scene))
-    np.testing.assert_array_equal(f_stg_hi, f_staged)
-
-    # the kernel flavor itself (CPU renderers run interpret -> staged;
-    # call the kernel directly in interpret mode)
-    from bhr_tpu.ops.neural_pallas import neural_render_packed
-    from bhr_tpu.ops.sampling import unpack_frame
-
-    packed = neural_render_packed(
-        r_hi.neural_params, r_hi.camera, scene, interpret=True,
-        precision="highest",
+    np.testing.assert_array_equal(
+        np.asarray(r_auto.render_frame(scene=scene)),
+        np.asarray(r_hi.render_frame(scene=scene)),
     )
-    f_kernel = np.asarray(unpack_frame(packed)).astype(np.int32)
-    diff = np.abs(f_kernel - f_staged.astype(np.int32)).max(-1)
-    # fp32 op-ordering differences between the kernel's plane math and
-    # the staged path amplify at the critical fold (same convention as
-    # test_neural.test_monolithic_kernel_matches_staged_bf16)
-    assert (diff == 0).mean() > 0.999
-    assert (diff > 2).mean() < 1e-3

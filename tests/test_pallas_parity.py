@@ -1,6 +1,7 @@
-"""Pallas kernel vs XLA oracle parity (the golden-image strategy from
+"""Pallas-Triton kernel vs XLA oracle parity (the golden-image strategy from
 SURVEY.md §4 — the oracle transcribes wgsl:51-215 exactly, and the kernel
-must reproduce it)."""
+must reproduce it). The kernel runs in the Pallas interpreter here; on a
+GPU it is compiled (`kernel_mode`), which the lowering tests below pin."""
 
 import jax
 import jax.numpy as jnp
@@ -9,10 +10,13 @@ import pytest
 
 from bhr_tpu.core.camera import Camera, generate_rays
 from bhr_tpu.core.scene import SceneParams
-from bhr_tpu.ops.pallas_trace import pallas_trace_image
+from bhr_tpu.ops import pallas_trace as pt
+from bhr_tpu.ops.pallas_trace import kernel_mode, pallas_trace_image
 from bhr_tpu.ops.trace import TraceConfig, trace_rays
 
 W, H, STEPS = 48, 32, 120
+# a scene that captures AND escapes rays within its step budget
+FAR_CAM = Camera.new([0.0, 2.0, 30.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
 
 
 def _scene(**kw):
@@ -41,10 +45,13 @@ def _assert_match(res_p, res_o):
     np.testing.assert_array_equal(
         np.asarray(res_p.final_vel), np.asarray(res_o.final_vel)
     )
+    np.testing.assert_array_equal(
+        np.asarray(res_p.final_pos), np.asarray(res_o.final_pos)
+    )
 
 
 def _assert_match_chaotic(res_p, res_o, frac=0.995, vel_atol=1e-4):
-    """Kernel vs oracle: two separately compiled XLA programs differ by
+    """Kernel vs oracle: two separately compiled programs differ by
     ~1 ulp in ray-gen (FMA contraction choices), and the geodesic flow near
     the photon sphere is chaotic — a 1e-7 direction difference can amplify
     to O(1) over a hundred steps for boundary pixels. Require agreement on
@@ -77,9 +84,27 @@ def _assert_match_chaotic(res_p, res_o, frac=0.995, vel_atol=1e-4):
 def test_kernel_matches_oracle(config):
     cam = Camera.default()
     scene = _scene(spin=jnp.float32(0.9 if config.model == "kerr" else 0.0))
-    res_p = pallas_trace_image(cam, scene, config, interpret=True, tile=(8, 128))
+    res_p = pallas_trace_image(cam, scene, config)
     res_o = _oracle(cam, scene, config)
     _assert_match_chaotic(res_p, res_o)
+
+
+@pytest.mark.parametrize("integrator", ["euler", "rk4", "leapfrog"])
+@pytest.mark.parametrize("model", ["schwarzschild", "kerr", "kerr_lt", "flat"])
+def test_kernel_matches_oracle_capture_escape(model, integrator):
+    """Every model x integrator on a scene whose rays both escape the
+    r=100 sphere and fall through the capture radius."""
+    spin = 0.9 if model.startswith("kerr") else 0.0
+    scene = SceneParams(screen_width=64, screen_height=48, max_steps=600,
+                        spin=jnp.float32(spin))
+    cfg = TraceConfig(model=model, integrator=integrator, dt=0.3)
+    res_p = pallas_trace_image(FAR_CAM, scene, cfg)
+    res_o = _oracle(FAR_CAM, scene, cfg)
+    status = np.asarray(res_o.status)
+    assert (status == 1).any()
+    if model != "flat":
+        assert (status == 2).any()
+    _assert_match_chaotic(res_p, res_o, vel_atol=5e-4)
 
 
 def test_kernel_matches_oracle_raygen_exact():
@@ -87,7 +112,7 @@ def test_kernel_matches_oracle_raygen_exact():
     ray generation against generate_rays — agreement to fp ulps."""
     cam = Camera.default()
     scene = _scene().replace(max_steps=0)
-    res_p = pallas_trace_image(cam, scene, TraceConfig(), interpret=True)
+    res_p = pallas_trace_image(cam, scene, TraceConfig())
     res_o = _oracle(cam, scene, TraceConfig())
     np.testing.assert_allclose(
         np.asarray(res_p.final_vel), np.asarray(res_o.final_vel), atol=3e-7
@@ -100,7 +125,7 @@ def test_kernel_matches_oracle_weak_field_tight():
     kernel and oracle agree tightly everywhere."""
     cam = Camera.default()
     scene = _scene(schwarzschild_radius=jnp.float32(0.25)).replace(max_steps=60)
-    res_p = pallas_trace_image(cam, scene, TraceConfig(), interpret=True)
+    res_p = pallas_trace_image(cam, scene, TraceConfig())
     res_o = _oracle(cam, scene, TraceConfig())
     np.testing.assert_array_equal(np.asarray(res_p.status), np.asarray(res_o.status))
     np.testing.assert_array_equal(np.asarray(res_p.steps), np.asarray(res_o.steps))
@@ -110,48 +135,48 @@ def test_kernel_matches_oracle_weak_field_tight():
 
 
 def test_odd_image_sizes_pad_and_slice_correctly():
-    """Non-tile-multiple sizes exercise the pad/slice path; compare to the
-    same rows/cols of a larger aligned render (identical ray-gen because
-    UVs reference full image dims — here both renders use THEIR OWN dims,
-    so compare against the oracle instead)."""
+    """Pixel counts that are not a block multiple exercise the padded tail
+    block (its padding rays start finished and are sliced off)."""
     cam = Camera.default()
     for (w, h) in ((37, 23), (130, 9), (127, 16)):
         scene = SceneParams(screen_width=w, screen_height=h, max_steps=50)
-        res_p = pallas_trace_image(cam, scene, TraceConfig(), interpret=True)
+        res_p = pallas_trace_image(cam, scene, TraceConfig())
         res_o = _oracle(cam, scene, TraceConfig())
         assert res_p.status.shape == (h, w)
         _assert_match_chaotic(res_p, res_o, frac=0.99)
 
 
-def test_early_exit_frequency_invariance():
-    """Masked updates make results identical for any check frequency."""
-    cam = Camera.default()
-    scene = _scene()
-    cfg = TraceConfig()
-    ref = pallas_trace_image(cam, scene, cfg, interpret=True, early_exit_every=1)
-    for eee in (0, 8, 64):
-        got = pallas_trace_image(cam, scene, cfg, interpret=True, early_exit_every=eee)
-        _assert_match(got, ref)
+@pytest.mark.parametrize("block", [32, 64, 512])
+def test_early_exit_frequency_invariance(monkeypatch, block):
+    """Each block leaves its loop when its own rays are done; masked
+    updates make the results identical at any early-exit granularity."""
+    scene = SceneParams(screen_width=48, screen_height=32, max_steps=600)
+    cfg = TraceConfig(dt=0.3)
+    ref = pallas_trace_image(FAR_CAM, scene, cfg)
+    monkeypatch.setattr(pt, "DEFAULT_BLOCK", block)
+    got = pallas_trace_image(FAR_CAM, scene, cfg)
+    _assert_match(got, ref)
 
 
-def test_tile_shape_invariance():
+def test_tile_shape_invariance(monkeypatch):
+    """Rays per block and warps per block change the schedule only."""
     cam = Camera.default()
     scene = _scene()
-    cfg = TraceConfig()
-    ref = pallas_trace_image(cam, scene, cfg, interpret=True, tile=(8, 128))
-    got = pallas_trace_image(cam, scene, cfg, interpret=True, tile=(16, 256))
+    cfg = TraceConfig(disk=True)
+    ref = pallas_trace_image(cam, scene, cfg)
+    monkeypatch.setattr(pt, "DEFAULT_BLOCK", 256)
+    monkeypatch.setattr(pt, "DEFAULT_NUM_WARPS", 8)
+    got = pallas_trace_image(cam, scene, cfg)
     _assert_match(got, ref)
 
 
 def test_row_band_offsets_match_full_image():
-    """Band rendering (multi-chip sp sharding) == rows of the full image."""
+    """Band rendering (multi-device sp sharding) == rows of the full image."""
     cam = Camera.default()
     scene = _scene()
     cfg = TraceConfig()
-    full = pallas_trace_image(cam, scene, cfg, interpret=True)
-    band = pallas_trace_image(
-        cam, scene, cfg, interpret=True, row0=16, local_shape=(8, W)
-    )
+    full = pallas_trace_image(cam, scene, cfg)
+    band = pallas_trace_image(cam, scene, cfg, row0=16, local_shape=(8, W))
     np.testing.assert_array_equal(
         np.asarray(full.status)[16:24], np.asarray(band.status)
     )
@@ -160,479 +185,187 @@ def test_row_band_offsets_match_full_image():
     )
 
 
-def test_fast_math_stays_close():
-    """fast_math swaps in rsqrt/approx-reciprocal; statuses and steps must
-    not change and directions stay within the L_inf budget."""
-    cam = Camera.default()
-    scene = _scene()
-    cfg = TraceConfig()
-    exact = pallas_trace_image(cam, scene, cfg, interpret=True)
-    fast = pallas_trace_image(cam, scene, cfg, interpret=True, fast_math=True)
-    np.testing.assert_array_equal(np.asarray(exact.status), np.asarray(fast.status))
-    np.testing.assert_array_equal(np.asarray(exact.steps), np.asarray(fast.steps))
-    m = np.asarray(exact.status) != 2  # captured rays' vel is unused
-    np.testing.assert_allclose(
-        np.asarray(exact.final_vel)[m], np.asarray(fast.final_vel)[m], atol=2e-3
-    )
-
-
-def test_stateless_fast_kernel_matches_exact():
-    """fast_math + no step tracking selects the stateless kernel (dt-freeze,
-    no status scratch); statuses must match the exact kernel everywhere and
-    directions stay within the fast-math budget."""
-    cam = Camera.new([0.0, 2.0, 30.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
-    scene = SceneParams(screen_width=64, screen_height=48, max_steps=900)
-    exact = pallas_trace_image(cam, scene, TraceConfig(), interpret=True)
-    sl = pallas_trace_image(
-        cam, scene, TraceConfig(), interpret=True, fast_math=True, track_steps=False
-    )
-    se, ss = np.asarray(exact.status), np.asarray(sl.status)
-    np.testing.assert_array_equal(se, ss)
-    assert 2 in se  # the scene actually exercises capture
-    m = se != 2
-    np.testing.assert_allclose(
-        np.asarray(exact.final_vel)[m], np.asarray(sl.final_vel)[m], atol=2e-3
-    )
-
-
-def test_stateless_flat_rk4_goes_straight():
-    """model='flat' + integrator='rk4' on the stateless path must propagate
-    rays in straight lines (regression: sl_rk4 used to apply Schwarzschild
-    acceleration to flat spacetime)."""
-    cam = Camera.default()
-    scene = _scene()
-    cfg = TraceConfig(model="flat", integrator="rk4")
-    exact = pallas_trace_image(cam, scene, cfg, interpret=True)
-    sl = pallas_trace_image(
-        cam, scene, cfg, interpret=True, fast_math=True, track_steps=False
-    )
-    np.testing.assert_array_equal(np.asarray(exact.status), np.asarray(sl.status))
-    vd = np.abs(np.asarray(exact.final_vel) - np.asarray(sl.final_vel)).max()
-    assert vd < 1e-5, f"flat+rk4 stateless bends rays: max vel divergence {vd}"
-    # straight rays never bend: final vel == initial ray direction
-    from bhr_tpu.core.camera import generate_rays
-
-    _, dirs = generate_rays(cam, W, H, scene.fov)
-    np.testing.assert_allclose(
-        np.asarray(sl.final_vel), np.asarray(dirs), atol=1e-5
-    )
-
-
-def test_stateless_kernel_with_kerr_and_adaptive():
-    cam = Camera.new([0.0, 2.0, 30.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
-    scene = SceneParams(
-        screen_width=48, screen_height=32, max_steps=400, spin=jnp.float32(0.9)
-    )
-    for cfg in (TraceConfig(model="kerr"), TraceConfig(adaptive=True)):
-        exact = pallas_trace_image(cam, scene, cfg, interpret=True)
-        sl = pallas_trace_image(
-            cam, scene, cfg, interpret=True, fast_math=True, track_steps=False
-        )
-        # the stateless kerr/adaptive arithmetic is algebraically
-        # restructured -> ulp differences amplify chaotically at the shadow
-        # boundary; require near-total agreement
-        same = (np.asarray(exact.status) == np.asarray(sl.status)).mean()
-        assert same >= 0.99, f"{cfg}: status agreement {same:.4f}"
-
-
-def test_stateless_disk_sentinel_matches_exact():
-    """Disk hits in the stateless kernel (sentinel-teleport freeze) must
-    reproduce the exact kernel's statuses and hit positions."""
-    cam = Camera.new([0.0, 3.0, 20.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
-    scene = SceneParams(screen_width=64, screen_height=48, max_steps=400)
-    for cfg in (
-        TraceConfig(disk=True),
-        TraceConfig(disk=True, integrator="rk4"),
-        TraceConfig(disk=True, model="kerr"),
-    ):
-        exact = pallas_trace_image(cam, scene, cfg, interpret=True)
-        sl = pallas_trace_image(
-            cam, scene, cfg, interpret=True, fast_math=True, track_steps=False
-        )
-        se, ss = np.asarray(exact.status), np.asarray(sl.status)
-        assert (se == ss).mean() >= 0.995, cfg
-        assert (ss == 3).sum() > 100  # the scene really hits the disk
-        m = (se == ss) & (se == 3)
-        pd = np.abs(np.asarray(exact.final_pos)[m] - np.asarray(sl.final_pos)[m])
-        # exact kernel is IEEE, stateless is fast-math; Kerr-Schild has ~3x
-        # more approximate reciprocals per step, so boundary pixels drift
-        # more (max observed 0.13 on a 20-radius disk = 0.65%)
-        tol = 0.35 if cfg.model == "kerr" else 0.1
-        assert pd.max() < tol, f"{cfg}: disk hit positions drifted {pd.max()}"
-        assert np.median(pd) < 0.01, f"{cfg}: median drift {np.median(pd)}"
-        # sentinel never leaks: all y positions are physical
-        assert np.abs(np.asarray(sl.final_pos)[..., 1]).max() < 150.0
-
-
-def test_track_steps_off_leaves_rest_identical():
-    cam = Camera.default()
-    scene = _scene()
-    cfg = TraceConfig()
-    a = pallas_trace_image(cam, scene, cfg, interpret=True, track_steps=True)
-    b = pallas_trace_image(cam, scene, cfg, interpret=True, track_steps=False)
-    np.testing.assert_array_equal(np.asarray(a.status), np.asarray(b.status))
-    np.testing.assert_array_equal(np.asarray(a.final_vel), np.asarray(b.final_vel))
-
-
-def test_pallas_render_packed_disk_exact_tier_rejected():
-    """The fused disk path is fast-tier-only (round 3): the exact tier's
-    disk parity contract lives in the staged LUT epilogue."""
-    from bhr_tpu.ops.pallas_trace import pallas_render_packed
-
-    cam = Camera.default()
-    scene = _scene()
-    with pytest.raises(ValueError, match="fast_math"):
-        pallas_render_packed(
-            cam, scene, TraceConfig(disk=True), interpret=True, fast_math=False
-        )
-
-
-def test_stateless_exact_kernel_bit_matches_scratch_exact():
-    """The IEEE stateless kernel (dt-freeze, no scratch — the
-    BHR_BENCH_FAST=0 perf path) must reproduce the scratch-status exact
-    kernel: the freeze guards (x*m + (1-m)*safe) are arithmetic no-ops for
-    live rays. On the real TPU the two programs agree BIT-EXACTLY
-    (0/8853 mismatches, verified on v5e); the CPU XLA backend makes
-    different FMA-contraction choices across separately compiled programs
-    (docs/DESIGN.md section 4), so this CPU test allows 1-ulp noise on a
-    handful of elements."""
-    cam = Camera.new([0.0, 2.0, 30.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
-    scene = SceneParams(screen_width=64, screen_height=48, max_steps=900)
-    for cfg in (TraceConfig(), TraceConfig(adaptive=True)):
-        scratch = pallas_trace_image(cam, scene, cfg, interpret=True)
-        sl = pallas_trace_image(
-            cam, scene, cfg, interpret=True, fast_math=False, track_steps=False
-        )
-        np.testing.assert_array_equal(
-            np.asarray(scratch.status), np.asarray(sl.status)
-        )
-        assert 2 in np.asarray(scratch.status)  # capture exercised
-        m = np.asarray(scratch.status) != 2  # captured vel is never consumed
-        va, vb = np.asarray(scratch.final_vel)[m], np.asarray(sl.final_vel)[m]
-        bit_equal = (va == vb).mean()
-        assert bit_equal >= 0.999, f"only {bit_equal:.5f} bit-equal"
-        np.testing.assert_allclose(va, vb, atol=1e-7)
-        pa, pb = np.asarray(scratch.final_pos)[m], np.asarray(sl.final_pos)[m]
-        np.testing.assert_allclose(pa, pb, atol=1e-5)
-
-
-def test_stateless_exact_rk4_matches_scratch():
-    cam = Camera.default()
-    scene = _scene()
-    cfg = TraceConfig(integrator="rk4")
-    scratch = pallas_trace_image(cam, scene, cfg, interpret=True)
-    sl = pallas_trace_image(
-        cam, scene, cfg, interpret=True, fast_math=False, track_steps=False
-    )
-    np.testing.assert_array_equal(np.asarray(scratch.status), np.asarray(sl.status))
-    m = np.asarray(scratch.status) != 2
+@pytest.mark.parametrize("stride", [2, 3])
+def test_stride_traces_full_image_subgrid(stride):
+    """stride > 1 (multires low pass): local pixel (i, j) is full-image
+    pixel (i*stride, j*stride) — same rays, same results."""
+    scene = SceneParams(screen_width=48, screen_height=30, max_steps=300)
+    cfg = TraceConfig(dt=0.3)
+    full = pallas_trace_image(FAR_CAM, scene, cfg)
+    lh, lw = -(-30 // stride), -(-48 // stride)
+    low = pallas_trace_image(FAR_CAM, scene, cfg, local_shape=(lh, lw),
+                             stride=stride)
     np.testing.assert_array_equal(
-        np.asarray(scratch.final_vel)[m], np.asarray(sl.final_vel)[m]
+        np.asarray(low.status), np.asarray(full.status)[::stride, ::stride]
+    )
+    np.testing.assert_allclose(
+        np.asarray(low.final_vel),
+        np.asarray(full.final_vel)[::stride, ::stride], atol=1e-6,
     )
 
 
-def test_kerr_disk_direction_evaluated_at_hit_point():
-    """Regression: the stateless KS kernel must evaluate the disk-hit
-    shading direction with the metric at the REAL hit point, not the
-    y-sentinel (where f ~ 0 turns dq/dl into the raw momentum and the disk
-    Doppler shading diverges everywhere)."""
-    cam = Camera.new([15.0, 5.0, 0.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
-    scene = SceneParams(screen_width=96, screen_height=54, max_steps=300,
-                        spin=jnp.float32(0.9))
-    cfg = TraceConfig(model="kerr", disk=True)
-    scratch = pallas_trace_image(cam, scene, cfg, interpret=True)
-    sl = pallas_trace_image(
-        cam, scene, cfg, interpret=True, fast_math=False, track_steps=False
-    )
-    so, ss = np.asarray(scratch.status), np.asarray(sl.status)
-    m = (so == ss) & (so == 3)
-    assert m.sum() > 500  # the scene hits the disk broadly
-    vd = np.abs(np.asarray(scratch.final_vel)[m] - np.asarray(sl.final_vel)[m])
-    assert vd.max() < 1e-4, f"disk-hit directions diverge: {vd.max()}"
-
-
-@pytest.mark.parametrize("fast_math", [True, False], ids=["fast", "exact"])
-def test_turbo_substeps_preserve_results(fast_math):
-    """steps_per_check inlines that many SELF-GATED steps per loop trip —
-    a pure loop restructuring. Every step re-derives its own termination
-    mask, so statuses and state must be identical at any setting (up to
-    cross-program 1-ulp FMA noise on the CPU backend)."""
-    cam = Camera.new([0.0, 2.0, 30.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
+def test_mask_traces_only_masked_rays():
+    """mask (multires fix-up): kept rays equal the full render, dropped
+    rays are never integrated (0 steps)."""
     scene = SceneParams(screen_width=48, screen_height=32, max_steps=600)
-    cfg = TraceConfig(dt=0.3)  # 180-unit path: escape at r > 100 is exercised
-    base = pallas_trace_image(
-        cam, scene, cfg, interpret=True, fast_math=fast_math,
-        track_steps=False, early_exit_every=0, steps_per_check=1,
+    cfg = TraceConfig(dt=0.3, disk=True)
+    full = pallas_trace_image(FAR_CAM, scene, cfg)
+    mask = np.zeros((32, 48), np.float32)
+    mask[8:20, 10:30] = 1.0
+    got = pallas_trace_image(FAR_CAM, scene, cfg, mask=jnp.asarray(mask))
+    keep = mask > 0
+    for a, b in ((got.status, full.status), (got.steps, full.steps)):
+        np.testing.assert_array_equal(np.asarray(a)[keep], np.asarray(b)[keep])
+    np.testing.assert_allclose(
+        np.asarray(got.final_vel)[keep], np.asarray(full.final_vel)[keep],
+        atol=1e-6,
     )
-    st = np.asarray(base.status)
-    assert 2 in st and 1 in st  # capture AND escape both exercised
-    for spc in (4, 10):
-        turbo = pallas_trace_image(
-            cam, scene, cfg, interpret=True, fast_math=fast_math,
-            track_steps=False, early_exit_every=0, steps_per_check=spc,
-        )
-        # different spc values are SEPARATELY COMPILED programs, so allow
-        # the CLAUDE.md-documented cross-program 1-ulp FMA noise at the
-        # photon-sphere boundary (status flips there are compile noise,
-        # not turbo semantics)
-        stb = np.asarray(turbo.status)
-        assert (st == stb).mean() >= 0.999, f"spc={spc}"
-        m = (st != 2) & (st == stb)  # captured rays' vel is never consumed
-        va = np.asarray(base.final_vel)[m]
-        vb = np.asarray(turbo.final_vel)[m]
-        assert (va == vb).mean() >= 0.999, f"spc={spc}"
-        np.testing.assert_allclose(va, vb, atol=1e-6)
+    assert (np.asarray(got.steps)[~keep] == 0).all()
+
+
+def test_all_masked_blocks_never_enter_the_loop():
+    scene = SceneParams(screen_width=48, screen_height=32, max_steps=600)
+    res = pallas_trace_image(FAR_CAM, scene, TraceConfig(),
+                             mask=jnp.zeros((32, 48), jnp.float32))
+    assert (np.asarray(res.steps) == 0).all()
+    assert (np.asarray(res.status) == 1).all()
 
 
 @pytest.mark.parametrize(
-    "cfg",
-    [
-        TraceConfig(integrator="rk4"),
-        TraceConfig(adaptive=True),
-        TraceConfig(disk=True),
-        TraceConfig(model="kerr"),
-        TraceConfig(integrator="rk4", adaptive=True, disk=True),
-    ],
-    ids=["rk4", "adaptive", "disk", "kerr", "rk4-adaptive-disk"],
+    "config",
+    [TraceConfig(dt=0.3), TraceConfig(dt=0.3, disk=True, adaptive=True),
+     TraceConfig(dt=0.3, model="kerr")],
+    ids=["euler", "disk-adaptive", "kerr"],
 )
-@pytest.mark.parametrize("fast_math", [True, False], ids=["fast", "exact"])
-def test_turbo_extends_to_all_stateless_configs(fast_math, cfg):
-    """Self-gated turbo is results-identical for rk4 / adaptive / disk /
-    exact-Kerr configs too (each step re-derives mask, adaptive dt, and the
-    disk-crossing test exactly as the spc=1 loop does)."""
-    cam = Camera.new([0.0, 3.0, 20.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
-    scene = SceneParams(
-        screen_width=48, screen_height=32, max_steps=120,
-        spin=jnp.float32(0.9 if cfg.model == "kerr" else 0.0),
-    )
-    a = pallas_trace_image(
-        cam, scene, cfg, interpret=True, fast_math=fast_math,
-        track_steps=False, early_exit_every=0, steps_per_check=1,
-    )
-    b = pallas_trace_image(
-        cam, scene, cfg, interpret=True, fast_math=fast_math,
-        track_steps=False, early_exit_every=0, steps_per_check=5,
-    )
-    sa, sb = np.asarray(a.status), np.asarray(b.status)
-    # separately compiled programs: tolerate boundary-pixel compile noise
-    assert (sa == sb).mean() >= 0.999
-    m = (sa != 2) & (sa == sb)
-    va, vb = np.asarray(a.final_vel)[m], np.asarray(b.final_vel)[m]
-    assert (va == vb).mean() >= 0.995
-    np.testing.assert_allclose(va, vb, atol=1e-5)
-    if cfg.disk:
-        assert (sa == 3).sum() > 50  # the scene really hits the disk
-        d = (sa == 3) & (sb == 3)
-        np.testing.assert_allclose(
-            np.asarray(a.final_pos)[d], np.asarray(b.final_pos)[d], atol=1e-5
-        )
+def test_heatmap_steps_match_oracle(config):
+    """Per-ray step counts (the debug heatmap) follow the oracle's
+    semantics: steps = the iterations a ray spent running."""
+    scene = SceneParams(screen_width=48, screen_height=32, max_steps=600,
+                        spin=jnp.float32(0.9 if config.model == "kerr" else 0.0))
+    res_p = pallas_trace_image(FAR_CAM, scene, config)
+    res_o = _oracle(FAR_CAM, scene, config)
+    sp, so = np.asarray(res_p.steps), np.asarray(res_o.steps)
+    assert (sp == so).mean() >= 0.995
+    assert len(np.unique(so)) > 10  # the scene spreads the step counts
 
 
-def test_turbo_exact_flat_stays_within_ulp():
-    """Flat spacetime never terminates a ray here, so turbo grouping leaves
-    the exact tier's trajectories unchanged up to the 1-ulp FMA-contraction
-    noise the CPU backend introduces between separately compiled programs
-    (bit-identical on the real TPU; see
-    test_stateless_exact_kernel_bit_matches_scratch_exact)."""
-    cam = Camera.default()
-    scene = _scene()
-    cfg = TraceConfig(model="flat")
-    a = pallas_trace_image(
-        cam, scene, cfg, interpret=True, fast_math=False, track_steps=False,
-        early_exit_every=0, steps_per_check=1,
-    )
-    b = pallas_trace_image(
-        cam, scene, cfg, interpret=True, fast_math=False, track_steps=False,
-        early_exit_every=0, steps_per_check=10,
-    )
-    # flat spacetime has no chaotic boundary: strict equality is safe here
-    np.testing.assert_array_equal(np.asarray(a.status), np.asarray(b.status))
-    np.testing.assert_allclose(
-        np.asarray(a.final_vel), np.asarray(b.final_vel), atol=1e-7
-    )
-    np.testing.assert_allclose(
-        np.asarray(a.final_pos), np.asarray(b.final_pos), atol=5e-5
-    )
-
-
-@pytest.mark.parametrize("integrator", ["euler", "rk4"])
-def test_monolithic_exact_bit_matches_staged(integrator):
-    """The exact-tier monolithic kernel (in-kernel shade + true
-    round-half-even quantizer) must produce the SAME packed frame as the
-    staged pipeline (stateless exact trace -> shade_planes_packed with
-    jnp.where / jnp.round)."""
-    from bhr_tpu.ops.pallas_trace import pallas_render_packed
-    from bhr_tpu.ops.shading import shade_planes_packed
-    from bhr_tpu.ops.starfield import procedural_background
-    import functools
-
-    cam = Camera.default()
-    scene = _scene()
-    cfg = TraceConfig(integrator=integrator)
-    mono = pallas_render_packed(
-        cam, scene, cfg, interpret=True, early_exit_every=0, fast_math=False
-    )
-    result = pallas_trace_image(
-        cam, scene, cfg, interpret=True, fast_math=False, track_steps=False,
-        early_exit_every=0,
-    )
-    staged = shade_planes_packed(
-        result,
-        functools.partial(procedural_background, seed=2020),
-        scene.max_steps,
-    )
-    # mono and staged are separately compiled programs: the shading and
-    # quantization must agree exactly, but a photon-sphere boundary pixel
-    # may classify differently under cross-program 1-ulp FMA noise
-    # (CLAUDE.md rule 5) — demand bit equality on >= 99.9% of pixels
-    mono_u8 = np.asarray(mono)
-    staged_u8 = np.asarray(staged)
-    same = mono_u8 == staged_u8
-    assert same.mean() >= 0.999, f"frames differ on {(~same).mean():.5f}"
-
-
-def test_linear_raygen_matches_tiled():
-    """Flat-pixel-id ray-gen (the padding-free grid for widths that don't
-    divide by the tile) must decode exactly the same (y, x) per pixel:
-    statuses identical, directions within cross-program ulp noise."""
+def test_linear_raygen_matches_tiled(monkeypatch):
+    """Flat-pixel-id ray-gen (y = id // W, x = id % W) must decode the same
+    (y, x) as generate_rays' 2-D grid for widths that are not a power of
+    two and for frames wider than a block."""
     cam = Camera.default()
     for (w, h) in ((48, 32), (130, 9), (200, 60)):
-        scene = SceneParams(screen_width=w, screen_height=h, max_steps=80)
-        a = pallas_trace_image(
-            cam, scene, TraceConfig(), interpret=True, track_steps=False,
-            tile=(8, 128), linear=False,
-        )
-        b = pallas_trace_image(
-            cam, scene, TraceConfig(), interpret=True, track_steps=False,
-            tile=(8, 128), linear=True,
-        )
-        np.testing.assert_array_equal(np.asarray(a.status), np.asarray(b.status))
-        m = np.asarray(a.status) != 2
+        scene = SceneParams(screen_width=w, screen_height=h, max_steps=0)
+        monkeypatch.setattr(pt, "DEFAULT_BLOCK", 64)
+        a = pallas_trace_image(cam, scene, TraceConfig())
+        b = _oracle(cam, scene, TraceConfig())
         np.testing.assert_allclose(
-            np.asarray(a.final_vel)[m], np.asarray(b.final_vel)[m], atol=2e-5
+            np.asarray(a.final_vel), np.asarray(b.final_vel), atol=3e-7
         )
 
 
 def test_linear_raygen_monolithic_shape():
-    from bhr_tpu.ops.pallas_trace import pallas_render_packed
-
+    """Every output plane comes back at the image shape and dtype."""
     cam = Camera.default()
     scene = SceneParams(screen_width=75, screen_height=33, max_steps=40)
-    frame = pallas_render_packed(
-        cam, scene, TraceConfig(), interpret=True, tile=(8, 128), linear=True
-    )
-    assert frame.shape == (33, 75)
+    res = pallas_trace_image(cam, scene, TraceConfig(disk=True))
+    assert res.final_pos.shape == res.final_vel.shape == (33, 75, 3)
+    assert res.status.shape == res.steps.shape == (33, 75)
+    assert res.status.dtype == res.steps.dtype == jnp.int32
+    assert np.isfinite(np.asarray(res.final_vel)).all()
 
 
-def test_monolithic_disk_matches_staged_fast():
-    """The fused in-kernel disk shading (fast tier) must track the staged
-    LUT epilogue: identical capture/escape/disk classification, disk
-    emission within the 10-bit LUT quantization + approx-reciprocal
-    tolerance."""
-    from bhr_tpu.core.camera import Camera
-    from bhr_tpu.core.scene import SceneParams
-    from bhr_tpu.models.disk import DiskParams, blackbody_lut
-    from bhr_tpu.ops.pallas_trace import pallas_render_packed, pallas_trace_image
-    from bhr_tpu.ops.sampling import unpack_frame
-    from bhr_tpu.ops.shading import shade_planes_packed
-    from bhr_tpu.ops.starfield import procedural_background
-    from bhr_tpu.ops.trace import TraceConfig
-    import functools
-
-    cam = Camera.new([0.0, 3.0, 13.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
-    for config, spin in (
-        (TraceConfig(disk=True), 0.0),
-        (TraceConfig(disk=True, model="kerr"), 0.9),  # the config-5 shape
-    ):
-        _check_monolithic_disk(cam, config, spin)
+def test_kerr_disk_direction_evaluated_at_hit_point():
+    """The Kerr kernel evaluates the disk-hit shading direction with the
+    metric at the hit point, like the oracle's final_direction."""
+    cam = Camera.new([15.0, 5.0, 0.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
+    scene = SceneParams(screen_width=96, screen_height=54, max_steps=300,
+                        spin=jnp.float32(0.9))
+    cfg = TraceConfig(model="kerr", disk=True)
+    res_p = pallas_trace_image(cam, scene, cfg)
+    res_o = _oracle(cam, scene, cfg)
+    so, sp = np.asarray(res_o.status), np.asarray(res_p.status)
+    m = (so == sp) & (so == 3)
+    assert m.sum() > 500  # the scene hits the disk broadly
+    vd = np.abs(np.asarray(res_o.final_vel)[m] - np.asarray(res_p.final_vel)[m])
+    assert np.median(vd) < 1e-5
+    assert (vd.max(-1) < 1e-4).mean() >= 0.995, f"disk-hit directions diverge: {vd.max()}"
 
 
-def _check_monolithic_disk(cam, config, spin):
-    import functools
-
-    import jax.numpy as jnp
-
-    from bhr_tpu.models.disk import DiskParams, blackbody_lut
-    from bhr_tpu.ops.pallas_trace import pallas_render_packed, pallas_trace_image
-    from bhr_tpu.ops.sampling import unpack_frame
-    from bhr_tpu.ops.shading import shade_planes_packed
-    from bhr_tpu.ops.starfield import procedural_background
-
-    scene = SceneParams(screen_width=96, screen_height=64, max_steps=150,
-                        spin=jnp.float32(spin))
-
-    mono = np.asarray(
-        unpack_frame(
-            pallas_render_packed(
-                cam, scene, config, interpret=True, fast_math=True,
-                early_exit_every=0, steps_per_check=1,
-            )
-        )
-    ).astype(np.int32)
-
-    result = pallas_trace_image(
-        cam, scene, config, interpret=True, fast_math=True,
-        track_steps=False, early_exit_every=0,
-    )
-    staged = np.asarray(
-        unpack_frame(
-            shade_planes_packed(
-                result,
-                functools.partial(procedural_background, seed=2020),
-                scene.max_steps,
-                bh_pos=scene.black_hole_position,
-                rs=scene.schwarzschild_radius,
-                camera_position=cam.position,
-                disk_params=DiskParams.for_scene(scene.schwarzschild_radius),
-                blackbody_lut=blackbody_lut(),
-            )
-        )
-    ).astype(np.int32)
-
-    # the scene must actually contain disk pixels for this test to bite
-    disk_px = np.asarray(result.status) == 3
-    assert disk_px.mean() > 0.05, "camera/scene no longer shows the disk"
-    diff = np.abs(mono - staged)[..., :3]
-    # the in-kernel LUT is a 128-entry lerp of the staged 512-entry table;
-    # remaining differences are that resampling, rsqrt-chain pow vs
-    # jnp.power, and approx reciprocals vs exact divides
-    assert diff.max() <= 6, (diff.max(), np.argwhere(diff.max(-1) > 6)[:5])
-    assert (diff > 2).mean() < 0.005
+@pytest.mark.parametrize(
+    "platform, mode",
+    [("gpu", "compiled"), ("cpu", "interpret"), ("rocm", None), ("METAL", None)],
+)
+def test_kernel_mode_platforms(platform, mode):
+    """The one platform decision: compiled on a GPU, interpreted on the
+    CPU, and an error anywhere else (no silent fallback)."""
+    if mode is None:
+        with pytest.raises(RuntimeError, match="no kernel route"):
+            kernel_mode(platform)
+    else:
+        assert kernel_mode(platform) == mode
 
 
-def test_monolithic_eligibility_matrix():
-    """Regression pin on monolithic_eligible: the BASELINE configs that
-    rely on the fused trace+shade kernel must stay eligible (a silent
-    fall-back to the staged epilogue costs ~1.5-3x per frame), and the
-    documented exclusions must stay excluded."""
-    from bhr_tpu.ops.pallas_trace import monolithic_eligible
-
+def _lowered(platform, variant="plain", config=TraceConfig(disk=True)):
+    """StableHLO text of pallas_trace_image lowered for `platform` here on
+    the CPU host (no GPU needed to lower for CUDA)."""
     scene = _scene()
-    common = dict(use_pallas=True, skybox=None, disk_params=None,
-                  tonemap="passthrough")
+    kw = {}
+    if variant == "masked":
+        kw["mask"] = jnp.ones((H, W), jnp.float32)
+    elif variant == "strided-band":
+        kw.update(stride=3, row0=6, local_shape=(4, 16))
+    fn = lambda c: pallas_trace_image(c, scene, config, **kw)
+    lowered = jax.jit(fn).trace(Camera.default()).lower(lowering_platforms=(platform,))
+    return lowered.as_text()
 
-    # headline fast + exact tiers
-    for fast in (True, False):
-        assert monolithic_eligible(
-            TraceConfig(), scene, fast_math=fast, **common)
-    # config 4: rk4 + adaptive + disk, fast tier, fused in-kernel disk
-    assert monolithic_eligible(
-        TraceConfig(integrator="rk4", adaptive=True, disk=True), scene,
-        use_pallas=True, skybox=None, disk_params=object(),
-        tonemap="passthrough", fast_math=True)
-    # config 5: exact Kerr-Schild + disk
-    assert monolithic_eligible(
-        TraceConfig(model="kerr", disk=True), scene,
-        use_pallas=True, skybox=None, disk_params=object(),
-        tonemap="passthrough", fast_math=True)
-    # exclusions: disk on the exact tier (staged LUT parity contract),
-    # texture skybox (gathers are an XLA epilogue), debug heatmap
-    assert not monolithic_eligible(
-        TraceConfig(disk=True), scene, use_pallas=True, skybox=None,
-        disk_params=object(), tonemap="passthrough", fast_math=False)
-    assert not monolithic_eligible(
-        TraceConfig(), scene, use_pallas=True, skybox=object(),
-        disk_params=None, tonemap="passthrough", fast_math=True)
-    dbg = _scene().replace(debug_mode=1)
-    assert not monolithic_eligible(
-        TraceConfig(), dbg, fast_math=True, **common)
+
+@pytest.mark.parametrize("variant", ["plain", "masked", "strided-band"])
+def test_gpu_path_compiles_and_never_interprets(variant):
+    """Lowered for the GPU, the geodesic kernel is one compiled Triton call
+    and nothing of the interpreter (whose kernel loop would lower to a
+    stablehlo.while): interpret=True is unreachable on the GPU path."""
+    text = _lowered("cuda", variant)
+    assert "xla.gpu.triton" in text
+    assert 'name = "geodesic_trace"' in text
+    assert "stablehlo.while" not in text
+
+
+@pytest.mark.parametrize("variant", ["plain", "masked"])
+def test_cpu_path_interprets(variant):
+    """Lowered for the CPU, the same call is the interpreter's loop and no
+    Triton call: the platform the call runs on decides, not the process's
+    default backend."""
+    text = _lowered("cpu", variant)
+    assert "xla.gpu.triton" not in text
+    assert "stablehlo.while" in text
+
+
+def test_unsupported_platform_fails_to_lower():
+    with pytest.raises(Exception, match="rocm"):
+        _lowered("rocm")
+
+
+@pytest.mark.parametrize("model", ["schwarzschild", "kerr_lt"])
+def test_fast_math_selects_the_rsqrt_renormalization(model):
+    """fast_math changes the kernel: only its tier renormalizes with rsqrt
+    (the exact tier uses sqrt and divides)."""
+    exact = _lowered("cpu", config=TraceConfig(model=model))
+    fast = _lowered("cpu", config=TraceConfig(model=model, fast_math=True))
+    assert "stablehlo.rsqrt" not in exact
+    assert "stablehlo.rsqrt" in fast
+
+
+@pytest.mark.parametrize(
+    "config",
+    [TraceConfig(fast_math=True),
+     TraceConfig(integrator="rk4", adaptive=True, disk=True, fast_math=True)],
+    ids=["euler", "rk4-adaptive-disk"],
+)
+def test_fast_math_kernel_matches_oracle(config):
+    """The approximate tier keeps the kernel-vs-oracle contract (the oracle
+    is exact whatever the config's tier)."""
+    cam = Camera.default()
+    res_p = pallas_trace_image(cam, _scene(), config)
+    res_o = _oracle(cam, _scene(), config)
+    _assert_match_chaotic(res_p, res_o)

@@ -1,5 +1,5 @@
 """Multi-chip sharding on the virtual 8-device CPU mesh: sharded renders
-must equal single-device renders (SURVEY.md §2.2 TPU-native equivalents)."""
+must equal single-device renders (SURVEY.md §2.2 equivalents)."""
 
 import jax
 import jax.numpy as jnp
@@ -224,11 +224,11 @@ def test_sharded_multires_equals_single_device():
     for h, divisor in ((48, 3), (48, 2), (33, 3)):  # 33: padded bands
         scene = SceneParams(screen_width=64, screen_height=h, max_steps=30)
         single = np.asarray(
-            render_multires(cam, scene, divisor=divisor, fast_math=True)
+            render_multires(cam, scene, divisor=divisor)
         )
         sharded = np.asarray(
             render_frame_sharded(
-                cam, scene, None, mesh, multires=divisor, fast_math=True
+                cam, scene, None, mesh, multires=divisor
             )
         )
         np.testing.assert_array_equal(sharded, single, err_msg=f"h={h} d={divisor}")
@@ -252,7 +252,6 @@ def test_sharded_multires_disk_and_texture(small_skybox):
     sharded = np.asarray(
         render_frame_sharded(
             cam, scene, None, mesh, config=cfg, disk_params=dp, multires=2,
-            fast_math=True,  # render_multires defaults to the fast tier
         )
     )
     np.testing.assert_array_equal(sharded, single)
@@ -264,7 +263,6 @@ def test_sharded_multires_disk_and_texture(small_skybox):
     sharded = np.asarray(
         render_frame_sharded(
             cam, scene, tex, mesh, multires=2, texture_filter="bilinear",
-            fast_math=True,
         )
     )
     np.testing.assert_array_equal(sharded, single)
@@ -280,7 +278,7 @@ def test_sharded_multires_animation():
     mesh = make_mesh(8)  # (2, 4)
     times = jnp.arange(2, dtype=jnp.float32) / 60.0
     frames, lums = render_animation_sharded(
-        times, scene, None, mesh, multires=2, fast_math=True
+        times, scene, None, mesh, multires=2
     )
     frames = np.asarray(frames)
     for i, t in enumerate(np.asarray(times)):

@@ -113,7 +113,7 @@ def test_block_on_passthrough_and_awaitable():
 def test_context_alias_and_device():
     assert GpuContext is TpuContext
     ctx = TpuContext.new()
-    assert ctx.platform in ("cpu", "tpu", "gpu")
+    assert ctx.platform in ("cpu", "gpu")
     r = BlackHoleRenderer(8, 8, context=ctx)
     assert r.device is ctx.device
     assert r.queue is ctx.device  # parity accessor (lib.rs:605-607)
@@ -127,17 +127,19 @@ def test_scene_size_mismatch_corrected():
 
 
 def test_disk_fast_path_rejects_camera_outside_escape_sphere():
-    """The stateless disk kernel's y-sentinel requires the camera inside the
-    escape sphere; the renderer must refuse the degenerate placement."""
-    import pytest
+    """A camera outside the escape sphere is no degenerate placement for the
+    GPU kernel (its rays carry their status; no position sentinel): every
+    ray escapes at its first step, exactly as in the XLA oracle."""
     from bhr_tpu import Camera
 
-    r = BlackHoleRenderer(16, 8, disk=True, fast_math=True, use_pallas=True)
     far = Camera.new([0.0, 160.0, 0.1], [0.0, 0.0, 0.0], [0.0, 0.0, -1.0])
-    with pytest.raises(ValueError, match="escape sphere"):
-        r.render_frame(far)
+    kernel = BlackHoleRenderer(16, 8, disk=True, use_pallas=True)
+    oracle = BlackHoleRenderer(16, 8, disk=True, use_pallas=False)
+    np.testing.assert_array_equal(
+        np.asarray(kernel.render_frame(far)), np.asarray(oracle.render_frame(far))
+    )
     # a normal camera still renders
-    frame = r.render_frame()
+    frame = kernel.render_frame()
     assert frame.shape == (8, 16, 4)
 
 
@@ -173,3 +175,28 @@ def test_deflection_cache_traces_once_and_matches(small_skybox):
     np.testing.assert_array_equal(
         f1, np.asarray(plain.render_frame(cam, scene))
     )
+
+
+class _FakeDevice:
+    def __init__(self, platform):
+        self.platform = platform
+
+
+@pytest.mark.parametrize(
+    "platform, use_pallas",
+    [("gpu", True), ("cpu", False), ("rocm", None)],
+)
+def test_renderer_kernel_choice_follows_the_platform(platform, use_pallas):
+    """The renderer's default path comes from kernel_mode alone: the
+    compiled kernel on a GPU, the XLA oracle on the CPU, an error on a
+    platform without a kernel route. An explicit use_pallas=False (the
+    app's --oracle) stays the user's choice everywhere."""
+    from bhr_tpu.renderer import TpuContext
+
+    ctx = TpuContext(_FakeDevice(platform))
+    if use_pallas is None:
+        with pytest.raises(RuntimeError, match="no kernel route"):
+            BlackHoleRenderer(16, 8, context=ctx)
+        return
+    assert BlackHoleRenderer(16, 8, context=ctx).use_pallas is use_pallas
+    assert BlackHoleRenderer(16, 8, context=ctx, use_pallas=False).use_pallas is False

@@ -62,7 +62,7 @@ def test_clamp_v_at_poles():
 
 
 def test_packed_matches_float_path():
-    """The packed-u32 sampler is the TPU fast path; on k/255 textures it
+    """The packed-u32 sampler is the production path; on k/255 textures it
     must agree with the float reference sampler exactly."""
     tex = _tex(16, 32)
     packed = pack_texture_rgba8(tex)
@@ -445,7 +445,6 @@ def test_multires_texture_subsample_runs(small_skybox):
     cp = corner_pack_texture(jnp.asarray(pack_texture_rgba8(small_skybox)))
     frame = render_multires(
         Camera.default(), scene, cp, divisor=2, texture_subsample=2,
-        interpret=True,
     )
     assert frame.shape == (24, 36, 4)
     assert frame[..., 3].min() == 255
